@@ -1,0 +1,247 @@
+"""The port's ``ParallelSparseLU`` lifecycle against the JAX package.
+
+Same matrices and right-hand sides through both packages, on the CPU:
+``lsolve``/``rsolve``, ``ldiv`` with and without refinement (nd embedding
+included), host ``refactor`` with new values and with a new pattern, the
+``L @ U == (Rs·A)[p, q]`` contract and the error paths. Float64 results
+are held to 1e-9, the JAX package's own ``tri_mode="inv"`` bar
+(tests/test_solve.py:111); float32 results to the JAX f32 tolerances.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+import torch
+from _approx import assert_isapprox
+
+import tpu_sparse_lu as jlu
+import tpu_sparse_lu_torch as tlu
+from tpu_sparse_lu.models import (
+    fe_block_matrix,
+    laplacian_1d,
+    poisson_2d,
+    random_sparse,
+)
+
+INV_TOL = 1e-9
+
+CASES = {
+    "fe": (lambda rng: fe_block_matrix(rng, 10, 5), dict(chunk_size=8)),
+    "poisson": (lambda rng: poisson_2d(12, 12), dict(chunk_size=16)),
+    "poisson_nd": (lambda rng: poisson_2d(12, 12),
+                   dict(chunk_size=16, ordering="nd")),
+    "laplace_mmd": (lambda rng: laplacian_1d(50),
+                    dict(chunk_size=8, ordering="mmd")),
+    "random_natural": (lambda rng: random_sparse(rng, 60, density=0.05),
+                       dict(chunk_size=8, ordering="natural")),
+}
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _pair(A, **cfg):
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(tri_mode="inv",
+                                                         **cfg))
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg),
+                              device="cpu")
+    return jf, tf
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lsolve_rsolve_match_jax(rng, case):
+    make, cfg = CASES[case]
+    jf, tf = _pair(make(rng), **cfg)
+    b = rng.random(tf.n_factor)
+    B = rng.random((tf.n_factor, 3))
+    for name in ("lsolve", "rsolve"):
+        for rhs in (b, B):
+            got = getattr(tf, name)(rhs)
+            assert isinstance(got, torch.Tensor) and got.shape == rhs.shape
+            assert_isapprox(got.numpy(), np.asarray(getattr(jf, name)(rhs)),
+                            rtol=INV_TOL, atol=INV_TOL, msg=name)
+
+
+@pytest.mark.parametrize("refine_steps", [0, 1])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ldiv_matches_jax(rng, case, refine_steps):
+    make, cfg = CASES[case]
+    A = make(rng)
+    jf, tf = _pair(A, **cfg)
+    if case == "poisson_nd":
+        assert tf.n_factor > tf.n
+    for rhs in (rng.random(A.shape[0]), rng.random((A.shape[0], 4))):
+        got = tf.ldiv(rhs, refine_steps=refine_steps)
+        assert got.dtype == torch.float64 and got.shape == rhs.shape
+        want = np.asarray(jf.ldiv(rhs, refine_steps=refine_steps))
+        assert_isapprox(got.numpy(), want, rtol=INV_TOL, atol=INV_TOL)
+        assert_isapprox(got.numpy(), spla.spsolve(A.tocsc(), rhs),
+                        rtol=INV_TOL, atol=INV_TOL)
+    # solve and __call__ are ldiv; on CPU tensors the kernel path is the
+    # plain path
+    rhs = rng.random(A.shape[0])
+    assert torch.equal(tf.solve(rhs), tf.ldiv(rhs))
+    assert torch.equal(tf(rhs), tf.ldiv(rhs))
+    B = torch.as_tensor(rng.random((A.shape[0], 2)))
+    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
+
+
+@pytest.mark.parametrize("case", ["poisson", "poisson_nd"])
+def test_f32_ldiv_matches_jax(rng, case):
+    """float32: the same bars as the JAX f32 tests (test_pallas.py:82 for
+    the direct solve, test_solve.py:303 for the refined backward error)."""
+    make, cfg = CASES[case]
+    A = make(rng)
+    jf, tf = _pair(A, dtype="float32", **cfg)
+    B = rng.random((A.shape[0], 4)).astype(np.float32)
+    got = tf.ldiv(B)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jf.ldiv(B)),
+                               rtol=1e-5, atol=1e-6)
+    X = tf.ldiv(B, refine_steps=1).numpy().astype(np.float64)
+    An = spla.norm(A)
+    for j in range(B.shape[1]):
+        r = np.linalg.norm(A @ X[:, j] - B[:, j]) / (
+            An * np.linalg.norm(X[:, j]) + np.linalg.norm(B[:, j]))
+        assert r < 5e-6, f"backward error {r}"
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_refactor_new_values_matches_jax(rng, case):
+    """The reference lifecycle: solve, refactor with new values (same
+    pattern), solve again — both packages, same inputs."""
+    make, cfg = CASES[case]
+    A = make(rng)
+    jf, tf = _pair(A, **cfg)
+    b = rng.random(A.shape[0])
+    assert_isapprox(tf.ldiv(b).numpy(), np.asarray(jf.ldiv(b)),
+                    rtol=INV_TOL, atol=INV_TOL)
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + rng.random(A2.data.shape[0]))
+    jf.refactor(A2)
+    tf.refactor(A2)
+    assert np.array_equal(tf.p, jf.p) and np.array_equal(tf.q, jf.q)
+    b2 = rng.random(A.shape[0])
+    got = tf.ldiv(b2).numpy()
+    assert_isapprox(got, np.asarray(jf.ldiv(b2)), rtol=INV_TOL, atol=INV_TOL)
+    assert_isapprox(got, spla.spsolve(A2.tocsc(), b2), rtol=INV_TOL,
+                    atol=INV_TOL)
+    assert_isapprox(tf.matvec(got).numpy(), A2 @ got, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("ordering", ["colamd", "nd"])
+def test_refactor_new_pattern_replans(rng, ordering):
+    A = poisson_2d(12, 12)
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=16, ordering=ordering), device="cpu")
+    K0 = tf.plan.lplan.K
+    A2 = (A + sp.diags(np.full(A.shape[0] - 12, -0.5), 12)
+          + sp.diags(np.full(A.shape[0] - 12, -0.5), -12)).tocsc()
+    A2 = (A2 + sp.random(A.shape[0], A.shape[0], density=0.02,
+                         random_state=np.random.RandomState(3))).tocsc()
+    A2 = A2 + sp.diags(np.full(A.shape[0], 10.0))
+    tf.refactor(A2)
+    b = rng.random(A.shape[0])
+    assert_isapprox(tf.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
+                    rtol=INV_TOL, atol=INV_TOL)
+    assert tf.plan.lplan.K >= K0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_factor_contract(rng, case):
+    """L @ U == (Rs .* A)[p, q] (reference src:292-316), on the matrix the
+    factors belong to (the nd extension under ordering="nd")."""
+    make, cfg = CASES[case]
+    A = make(rng)
+    jf, tf = _pair(A, **cfg)
+    Af = A if tf._ext is None else sp.csc_matrix(
+        (tf._ext_values(sp.csc_matrix(A)), tf._a_factor_pattern[1],
+         tf._a_factor_pattern[0]), shape=(tf.n_factor, tf.n_factor))
+    lhs = (tf.L @ tf.U).toarray()
+    rhs = (sp.diags(tf.Rs) @ Af).toarray()[tf.p][:, tf.q]
+    assert_isapprox(lhs, rhs, rtol=1e-12, atol=1e-12)
+    for name in ("L", "U"):
+        assert (getattr(tf, name) != getattr(jf, name)).nnz == 0
+    for name in ("p", "q", "Rs"):
+        assert np.array_equal(getattr(tf, name), getattr(jf, name))
+    assert (tf.m, tf.n, tf.n_factor) == (jf.m, jf.n, jf.n_factor)
+    assert (tf.chunk_size, tf.total_chunks) == (jf.chunk_size,
+                                                jf.total_chunks)
+
+
+def test_wrong_size_rhs_raises(rng):
+    tf = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
+    with pytest.raises(ValueError, match="same size"):
+        tf.ldiv(rng.random(35))
+    with pytest.raises(ValueError, match="same size"):
+        tf.lsolve(rng.random((37, 2)))
+    with pytest.raises(ValueError, match="same size"):
+        tf.ldiv(rng.random((36, 2, 2)))
+    with pytest.raises(ValueError):
+        tf.refactor(poisson_2d(5, 5))
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available on this machine")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cuda")
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError):
+        tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8)
+
+
+@pytest.mark.parametrize("call, item", [
+    (lambda F: F.refactor_numeric(None), "item 6"),
+    (lambda F: F.make_refactor_solve_step(), "item 6"),
+    (lambda F: F.enable_device_refactor(), "item 6"),
+    (lambda F: F.make_f64_ldiv(), "item 9"),
+    (lambda F: F.save("unused.npz"), "item 11"),
+    (lambda F: tlu.ParallelSparseLU.from_saved(None, "unused.npz"),
+     "item 11"),
+])
+def test_not_ported_entry_points_name_roadmap_item(call, item):
+    F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
+        call(F)
+
+
+def test_from_jax_arrays_checks_matrix(rng, tmp_path):
+    A = poisson_2d(8, 8)
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(chunk_size=8,
+                                                         tri_mode="inv"))
+    path = tmp_path / "state.npz"
+    jf.save(str(path), values=True)
+    with np.load(path) as z:
+        arrays = dict(z)
+    tf = tlu.ParallelSparseLU.from_jax_arrays(A, arrays, device="cpu")
+    b = rng.random(A.shape[0])
+    assert_isapprox(tf.ldiv(b).numpy(), np.asarray(jf.ldiv(b)),
+                    rtol=INV_TOL, atol=INV_TOL)
+    A2 = A.copy()
+    A2.data *= 2.0
+    with pytest.raises(ValueError, match="values differ"):
+        tlu.ParallelSparseLU.from_jax_arrays(A2, arrays, device="cpu")
+    with pytest.raises(ValueError, match="pattern differs"):
+        tlu.ParallelSparseLU.from_jax_arrays(
+            A + sp.diags(np.ones(59), 5), arrays, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tlu.ParallelSparseLU.from_jax_arrays(A, {**arrays, "light": 1},
+                                             device="cpu")
+
+
+def test_close_releases_device_state():
+    F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
+    tlu.cleanup_ParallelSparseLU(F)
+    assert F.ldata is None and F.udata is None

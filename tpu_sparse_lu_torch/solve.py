@@ -1,0 +1,105 @@
+"""Level-scheduled blocked triangular solves: counterpart of
+``tpu_sparse_lu/solve.py`` at ``tri_mode="inv"``.
+
+The reference's ``lsolve!``/``rsolve!`` run a serial chunk loop of BLAS
+``trsv!`` + ``gemm!`` (reference src/SharedMemSparseLU.jl:349-367,
+:374-392). Here the chunk DAG is layered into levels on the host
+(``plan_triangular``) and each level runs as two waves
+(:func:`~tpu_sparse_lu_torch.ops.fused_ldiv.build_waves`):
+
+* the diagonal wave ``x_k ← Dinv_k · x_k`` over the level's chunks (the
+  reference's ``trsv!`` with pre-inverted tiles), then
+* the off-diagonal wave ``x_dst += Σ off_t · x_src(t)`` over the tiles
+  whose source chunk lies in the level (the reference's ``gemm!``, tiles
+  pre-negated).
+
+The right-hand side is carried chunk-blocked as ``xw : (K+1, cs, R)``;
+block ``K`` is the padding slot the JAX engine needs for its padded level
+arrays. The waves touch only real chunks, so it stays zero here. One
+executor serves every device: the JAX ``scan``/``unrolled`` split is a
+compile-time concern of XLA and is not carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import torch
+
+from .ops.fused_ldiv import Wave, build_waves, wave_apply, wave_apply_plain
+from .ops.tri_inverse import tri_inverse
+from .symbolic import TriPlan
+
+__all__ = [
+    "TriKernelData",
+    "prepare_tri_kernel",
+    "blocked_tri_solve",
+    "block_rhs",
+    "unblock_rhs",
+]
+
+
+@dataclasses.dataclass
+class TriKernelData:
+    """Device data for one triangular factor.
+
+    ``tiles_t`` is the factor's tile bank, every tile transposed (the
+    layout the kernel reads coalesced): the ``K+1`` diagonal-tile inverses,
+    then the ``T+1`` negated off-diagonal tiles, dummy slots included.
+    """
+
+    K: int
+    T: int
+    tiles_t: torch.Tensor  # (K+1+T+1, cs, cs)
+    waves: List[Wave]
+
+    @property
+    def diag_inv(self) -> torch.Tensor:
+        """(K+1, cs, cs) diagonal-tile inverses (padding rows = I)."""
+        return self.tiles_t[: self.K + 1].transpose(1, 2)
+
+    @property
+    def offdiag(self) -> torch.Tensor:
+        """(T+1, cs, cs) negated off-diagonal tiles."""
+        return self.tiles_t[self.K + 1:].transpose(1, 2)
+
+
+def prepare_tri_kernel(plan: TriPlan, diag: torch.Tensor,
+                       offdiag: torch.Tensor) -> TriKernelData:
+    """Invert the packed diagonal tiles and build the wave schedule.
+
+    The diagonal is always explicit: SuperLU's L stores its unit diagonal
+    and the packer writes it into the tiles.
+    """
+    diag_inv = tri_inverse(diag, lower=plan.lower)
+    tiles_t = torch.cat([diag_inv, offdiag]).transpose(1, 2).contiguous()
+    return TriKernelData(K=plan.K, T=plan.T, tiles_t=tiles_t,
+                         waves=build_waves(plan, diag.device))
+
+
+def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
+                      plain: bool = False) -> torch.Tensor:
+    """Solve ``T x = b`` in place on the chunk-blocked ``xw (K+1, cs, R)``.
+
+    ``plain=True`` runs the plain PyTorch waves on any device; it exists to
+    hold the kernel path against them on the card.
+    """
+    apply = wave_apply_plain if plain else wave_apply
+    for w in data.waves:
+        apply(xw, data.tiles_t, w)
+    return xw
+
+
+def block_rhs(v: torch.Tensor, n: int, K: int, cs: int) -> torch.Tensor:
+    """(n, R) → chunk-blocked (K+1, cs, R) with zero-padded tail + dummy."""
+    R = v.shape[1]
+    out = torch.zeros(((K + 1) * cs, R), dtype=v.dtype, device=v.device)
+    out[:n] = v
+    return out.view(K + 1, cs, R)
+
+
+def unblock_rhs(xw: torch.Tensor, n: int) -> torch.Tensor:
+    """Chunk-blocked (K+1, cs, R) → (n, R)."""
+    Kp1, cs, R = xw.shape
+    return xw.reshape(Kp1 * cs, R)[:n]

@@ -1,0 +1,107 @@
+"""Solver configuration: the PyTorch counterpart of ``tpu_sparse_lu.utils.config``.
+
+Same frozen dataclass and the same defaults, minus the TPU knobs
+(``use_pallas``, ``schedule``, ``matmul_precision``): the port always
+computes float32 in full float32 (never TF32) and runs one level executor.
+Modes the port does not serve yet raise ``NotImplementedError`` naming the
+``ROADMAP.md`` queue A item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+_NOT_YET = {
+    ("tri_mode", "trsm"): "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
+    ("tri_mode", "inv_refine"):
+        "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
+    ("factorize", "device"):
+        "ROADMAP.md queue A item 6 (device refactorization)",
+    ("factorize", "auto"):
+        "ROADMAP.md queue A item 6 (device refactorization)",
+    ("stream_dtype", "bfloat16"):
+        "ROADMAP.md queue A item 10 (bfloat16 tile stream)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Static configuration for a :class:`ParallelSparseLU` factorization.
+
+    Attributes:
+      chunk_size: dense tile edge of the block decomposition of L and U.
+        ``None`` → :func:`default_chunk_size` for the solver's device.
+      tri_mode: ``"auto"`` (default, resolves to ``"inv"``) or ``"inv"``:
+        diagonal tiles are pre-inverted, so a solve is tile products only.
+      dtype: ``"float32"`` or ``"float64"``; ``None`` inherits the input
+        matrix's dtype (float64 matrices solve in float64).
+      ordering: ``"colamd"`` (SuperLU default), ``"natural"``, ``"mmd"`` or
+        ``"nd"`` — the chunk-aligned staged nested-dissection embedding
+        (ordering.py), factored without row pivoting by default.
+      pivot_threshold: SuperLU ``DiagPivotThresh``; ``None`` keeps its
+        default (0.0 under ``"nd"``).
+      nd_cutoff: nd base-subdomain size: ``None`` (= cs), an int, or
+        ``"auto"`` (tries {cs, 2cs, 4cs} under the tile-count cost model,
+        one trial factorization each).
+      stream_dtype: dtype of the L/U tiles the solve reads; ``"float32"``.
+      factorize: first-factorization backend; ``"host"`` (SuperLU).
+    """
+
+    chunk_size: Optional[int] = None
+    tri_mode: str = "auto"
+    dtype: Optional[str] = None
+    ordering: str = "colamd"
+    pivot_threshold: Optional[float] = None
+    nd_cutoff: object = None  # None | int | "auto"
+    stream_dtype: str = "float32"
+    factorize: str = "host"
+
+    def __post_init__(self):
+        for field, value in (("tri_mode", self.tri_mode),
+                             ("factorize", self.factorize),
+                             ("stream_dtype", self.stream_dtype)):
+            if (field, value) in _NOT_YET:
+                raise NotImplementedError(
+                    f"{field}={value!r} is not ported yet: "
+                    f"{_NOT_YET[field, value]}"
+                )
+        if self.tri_mode not in ("auto", "inv"):
+            raise ValueError(f"unknown tri_mode: {self.tri_mode!r}")
+        if self.dtype not in (None, "float32", "float64"):
+            raise ValueError(f"unknown dtype: {self.dtype!r}")
+        if self.ordering not in ("colamd", "nd", "natural", "mmd"):
+            raise ValueError(f"unknown ordering: {self.ordering!r}")
+        if not (self.nd_cutoff is None or self.nd_cutoff == "auto"
+                or isinstance(self.nd_cutoff, int)):
+            raise ValueError(f"unknown nd_cutoff: {self.nd_cutoff!r}")
+        if self.stream_dtype != "float32":
+            raise ValueError(f"unknown stream_dtype: {self.stream_dtype!r}")
+        if self.factorize != "host":
+            raise ValueError(f"unknown factorize: {self.factorize!r}")
+
+
+def resolve_tri_mode(tri_mode: str) -> str:
+    """Resolve ``tri_mode="auto"``: ``"inv"`` on every device, the mode the
+    ldiv kernel serves (the JAX package picks it on TPU only)."""
+    return "inv" if tri_mode == "auto" else tri_mode
+
+
+def default_chunk_size(n: int, device_type: str = "cpu") -> int:
+    """Chunk-size policy when the user does not pass one.
+
+    The reference defaults to 8 and clamps to n (src:67-72). On CUDA the
+    ldiv kernel is built for tiles of up to 128 rows, and the widest tile
+    moves the most bytes per launch, so the default there is 128 whenever
+    the problem fills a tile. Elsewhere smaller tiles scale with problem
+    size, as in the JAX package.
+    """
+    if device_type == "cuda":
+        return max(1, min(128, n))
+    if n <= 256:
+        cs = 8
+    elif n <= 4096:
+        cs = 32
+    else:
+        cs = 64
+    return max(1, min(cs, n))
