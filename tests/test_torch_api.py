@@ -203,9 +203,6 @@ def test_device_is_required():
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda F: F.refactor_numeric(None), "item 6"),
-    (lambda F: F.make_refactor_solve_step(), "item 6"),
-    (lambda F: F.enable_device_refactor(), "item 6"),
     (lambda F: F.make_f64_ldiv(), "item 9"),
     (lambda F: F.save("unused.npz"), "item 11"),
     (lambda F: tlu.ParallelSparseLU.from_saved(None, "unused.npz"),
@@ -236,7 +233,7 @@ def test_from_jax_arrays_checks_matrix(rng, tmp_path):
     with pytest.raises(ValueError, match="pattern differs"):
         tlu.ParallelSparseLU.from_jax_arrays(
             A + sp.diags(np.ones(59), 5), arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         tlu.ParallelSparseLU.from_jax_arrays(A, {**arrays, "light": 1},
                                              device="cpu")
 

@@ -89,8 +89,6 @@ def test_default_chunk_size(n, device_type, cs):
 @pytest.mark.parametrize("field, value, item", [
     ("tri_mode", "trsm", "item 8"),
     ("tri_mode", "inv_refine", "item 8"),
-    ("factorize", "device", "item 6"),
-    ("factorize", "auto", "item 6"),
     ("stream_dtype", "bfloat16", "item 10"),
 ])
 def test_config_modes_not_ported_name_roadmap_item(field, value, item):

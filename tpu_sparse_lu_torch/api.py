@@ -9,16 +9,23 @@ refactor in place when values change but sparsity doesn't → solve again.
   * ``F.ldiv(b)`` / ``F.solve(b)`` / ``F(b)``  ↔ ``ldiv!(x, F, b)``
   * ``F.lsolve(b)`` / ``F.rsolve(b)``          ↔ ``lsolve!`` / ``rsolve!``
   * ``F.refactor(A)``                          ↔ ``lu!(F, A)``
+  * ``F.refactor_numeric(A)``                  — same-pattern numeric
+                                                 refactorization on the
+                                                 device (static pivots)
 
-Construction (SuperLU, the nd embedding, planning) runs on the host; the
+Construction (SuperLU, or with ``factorize="device"`` no numeric host
+factorization at all; the nd embedding; planning) runs on the host; the
 packed tiles, their inverses and the solves live on ``device``. A solve on
-a CUDA device runs the hand-written kernels of ``ops/fused_ldiv.py``.
+a CUDA device runs the hand-written kernels of ``ops/fused_ldiv.py``, a
+device refactorization those of ``ops/span_gather.py``, ``ops/lu_tile.py``
+and ``ops/elimination.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import warnings
 from typing import Mapping, Optional
 
@@ -33,6 +40,7 @@ from .solve import (
     block_rhs,
     blocked_tri_solve,
     prepare_tri_kernel,
+    tri_kernel_from_bank,
     unblock_rhs,
 )
 from .symbolic import (
@@ -47,7 +55,7 @@ from .utils.config import SolverConfig, default_chunk_size, resolve_tri_mode
 
 __all__ = ["ParallelSparseLU", "cleanup_ParallelSparseLU"]
 
-_DEVICE_REFACTOR = "ROADMAP.md queue A item 6 (device refactorization)"
+_PERSISTENCE = "ROADMAP.md queue A item 11 (persistence)"
 
 # SolverConfig fields a JAX save carries over; the solve mode and tile
 # stream are the port's own
@@ -74,6 +82,48 @@ def _resolve_dtype(config_dtype: Optional[str], A_dtype) -> torch.dtype:
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+def _pattern_factors(A: sp.csc_matrix) -> HostFactors:
+    """Pattern-only :class:`HostFactors` for ``factorize="device"``.
+
+    Under a static-diagonal-pivot ordering (p = q = identity, no row
+    pivoting) the factor patterns need no numeric factorization: L and U
+    lie inside the blocked-elimination closure of A's own pattern, which
+    is what the device refactorization plans on
+    (``refactor.closure_solve_plans``). These placeholder factors carry
+    the triangles of A's pattern with identity values (diagonal 1,
+    off-diagonal 0, so the pack that precedes the first device
+    factorization stays finite); the first device refactorization then
+    computes the real values and every closure fill tile.
+    """
+    n = A.shape[0]
+    eye = sp.eye(n, format="csc")
+
+    def tri(M):
+        M = (M + eye).tocsc()
+        M.sort_indices()
+        rows = M.indices
+        cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(M.indptr))
+        M.data = (rows == cols).astype(np.float64)
+        return M
+
+    ident = np.arange(n, dtype=np.int64)
+    return HostFactors(
+        m=n, n=n,
+        L=tri(sp.tril(A, -1)),
+        U=tri(sp.triu(A, 1)),
+        p=ident, q=ident.copy(),
+        Rs=np.ones(n, dtype=np.float64),
+    )
+
+
+def _free_bytes(device: torch.device) -> int:
+    """Free memory of ``device``: ``torch.cuda.mem_get_info`` on a card,
+    the host's available physical memory on the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
 
 
 class ParallelSparseLU:
@@ -113,6 +163,7 @@ class ParallelSparseLU:
 
         # nested-dissection embedding: factor an extended matrix whose
         # chunks align with the dissection stages
+        self._init_refactor_state()
         self._ext = None
         self._nd_cutoff = self.config.nd_cutoff
         A_factor = A
@@ -126,13 +177,40 @@ class ParallelSparseLU:
             )
             self._ext = {"src": ext_src, "pos": ext_pos, "data_src": data_src}
             A_factor = A_ext
-        self._factors = self._factorize(A_factor)
+        # first-factorization backend: "device" runs no numeric host
+        # factorization — pattern-only placeholder factors now, the real
+        # values from the device elimination below
+        fac = self.config.factorize
+        static_piv = self.config.ordering == "nd" or (
+            self.config.ordering == "natural"
+            and self.config.pivot_threshold == 0.0
+        )
+        if fac == "auto":
+            fac = "device" if static_piv else "host"
+        if fac == "device" and not static_piv:
+            raise ValueError(
+                "factorize='device' needs a static-diagonal-pivot ordering "
+                "(ordering='nd', or 'natural' with pivot_threshold=0.0): "
+                "the frozen pivot order must be known from the pattern "
+                "alone before any numeric factorization exists"
+            )
+        self.config = dataclasses.replace(self.config, factorize=fac)
+        if fac == "device":
+            self._factors = _pattern_factors(A_factor)
+        else:
+            self._factors = self._factorize(A_factor)
         self.plan = build_symbolic_plan(self._factors, cs)
         self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
         self._a_factor_pattern = (A_factor.indptr.copy(),
                                   A_factor.indices.copy())
         self._set_matrix(A)
-        self._prepare_device()
+        if fac == "device":
+            # the first factorization on the device: closure plans (with
+            # the memory guard), then the device elimination
+            self.enable_device_refactor()
+            self.refactor_numeric(A)
+        else:
+            self._prepare_device()
 
     @classmethod
     def from_jax_arrays(cls, A: sp.spmatrix, arrays: Mapping, *, device):
@@ -148,7 +226,7 @@ class ParallelSparseLU:
         if int(z["version"]) != 1:
             raise ValueError(f"unknown save version {int(z['version'])}")
         if "light" in z and int(z["light"]) == 1:
-            _not_ported("loading a values-less save", _DEVICE_REFACTOR)
+            _not_ported("loading a values-less save", _PERSISTENCE)
         A = sp.csc_matrix(A)
         A.sort_indices()
         if (not np.array_equal(A.indptr, z["a_indptr"])
@@ -161,6 +239,7 @@ class ParallelSparseLU:
                              "load with the saved matrix, then refactor(A)")
         saved = json.loads(bytes(z["config_json"]).decode())
         self = cls.__new__(cls)
+        self._init_refactor_state()
         self.device = _resolve_device(device)
         self.config = SolverConfig(
             tri_mode="inv", **{k: saved[k] for k in _CARRIED_CONFIG}
@@ -210,18 +289,34 @@ class ParallelSparseLU:
         self._prepare_device()
         return self
 
+    def _init_refactor_state(self) -> None:
+        self._refactor_plan = None
+        self._refactor_dev = None
+        self._factors_stale = False
+        self.refactor_diagnostics = None
+
     def _autotune_nd_cutoff(self, A: sp.csc_matrix, cs: int) -> int:
         """Pick the nd base-subdomain size among {cs, 2cs, 4cs} by the
         tile-count cost model of the JAX package (one trial factorization
-        each): ``89*(diag + off-diagonal tiles) + 20*levels``."""
+        each): ``89*(diag + off-diagonal tiles) + 20*levels``. Under
+        ``factorize != "host"`` the trial is pattern-only: the tile counts
+        come from the blocked closure the device elimination fills."""
         from .ordering import staged_extension
 
+        pattern_only = self.config.factorize != "host"
         best, best_cost = cs, None
         for cutoff in (cs, 2 * cs, 4 * cs):
             A_ext, _, _, _ = staged_extension(A, cs, cutoff=cutoff)
-            f = self._factorize(A_ext)
-            lp = plan_triangular(f.L, cs, lower=True)
-            up = plan_triangular(f.U, cs, lower=False)
+            if pattern_only:
+                from .refactor import closure_solve_plans
+
+                pf = _pattern_factors(A_ext)
+                lp, up = closure_solve_plans(A_ext, pf.L, pf.U, pf.p, pf.q,
+                                             cs)
+            else:
+                f = self._factorize(A_ext)
+                lp = plan_triangular(f.L, cs, lower=True)
+                up = plan_triangular(f.U, cs, lower=False)
             cost = (89 * (lp.K + up.K + lp.T + up.T + 2)
                     + 20 * (lp.num_levels + up.num_levels))
             if best_cost is None or cost < best_cost:
@@ -253,17 +348,36 @@ class ParallelSparseLU:
 
     def _set_matrix(self, A: sp.csc_matrix) -> None:
         """Keep A on the device as a sparse CSR tensor, for the residual of
-        iterative refinement (``matvec``)."""
-        csr = A.tocsr()
+        iterative refinement (``matvec``), with the CSC → CSR permutation
+        of its values, so new values on the device need no host trip."""
+        nnz = A.indices.shape[0]
+        # CSC positions carried through the conversion (shifted by one so
+        # that no position is an explicit zero)
+        pos = sp.csc_matrix((np.arange(1, nnz + 1), A.indices, A.indptr),
+                            shape=A.shape).tocsr()
+        dev = self.device
+        self._csr_pattern = (
+            torch.as_tensor(pos.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(pos.indices, dtype=torch.int64, device=dev),
+        )
+        self._csc_to_csr = torch.as_tensor(pos.data - 1, dtype=torch.int64,
+                                           device=dev)
+        self._A_dev = self._csr_matrix(
+            torch.as_tensor(A.data, dtype=self.dtype, device=dev))
+
+    def _csr_matrix(self, a_data: torch.Tensor) -> torch.Tensor:
+        """The sparse CSR tensor of A from its CSC values on the device."""
         with warnings.catch_warnings():
             # torch flags sparse CSR as beta and notes the skipped checks
             warnings.filterwarnings("ignore", message="Sparse")
-            self._A_dev = torch.sparse_csr_tensor(
-                torch.as_tensor(csr.indptr, dtype=torch.int64),
-                torch.as_tensor(csr.indices, dtype=torch.int64),
-                torch.as_tensor(csr.data, dtype=self.dtype),
-                size=A.shape, device=self.device, check_invariants=False,
+            return torch.sparse_csr_tensor(
+                *self._csr_pattern, a_data[self._csc_to_csr],
+                size=(self.n, self.n), check_invariants=False,
             )
+
+    def _set_matrix_values(self, a_data: torch.Tensor) -> None:
+        """New values of A (CSC order, on the device), same pattern."""
+        self._A_dev = self._csr_matrix(a_data)
 
     def matvec(self, x) -> torch.Tensor:
         """``A @ x`` on the device with the current matrix values."""
@@ -290,11 +404,74 @@ class ParallelSparseLU:
 
     @property
     def L(self) -> sp.csc_matrix:
+        self._materialize_factors()
         return self._factors.L
 
     @property
     def U(self) -> sp.csc_matrix:
+        self._materialize_factors()
         return self._factors.U
+
+    def _materialize_factors(self) -> None:
+        """Refresh the host csc factor values from the device tiles.
+
+        After a device factorization (``refactor_numeric`` or
+        ``factorize="device"``) the numeric truth lives in the device
+        banks; the csc factors kept for reference parity (``F.L``/``F.U``,
+        reference struct fields src:43-62) are stale until read. The
+        diagonal tiles and the negated off-diagonal tiles are pulled once,
+        restricted to real rows and columns, explicit zeros dropped.
+        """
+        if not self._factors_stale:
+            return
+        self._factors_stale = False
+        nf = self.plan.n
+
+        def tocsc(tplan: TriPlan, data: TriKernelData) -> sp.csc_matrix:
+            cs = tplan.cs
+            ar = np.arange(cs)
+            dv = data.diag[: tplan.K].double().cpu().numpy()
+            k = np.arange(tplan.K, dtype=np.int64)
+            rows = [np.broadcast_to(k[:, None, None] * cs
+                                    + ar[None, :, None], dv.shape).ravel()]
+            cols = [np.broadcast_to(k[:, None, None] * cs
+                                    + ar[None, None, :], dv.shape).ravel()]
+            vals = [dv.ravel()]
+            if tplan.T:
+                # off-diagonal tiles are stored negated for the solve
+                ov = -data.offdiag[: tplan.T].double().cpu().numpy()
+                br = tplan.tile_brow[: tplan.T].astype(np.int64)
+                bc = tplan.tile_bcol[: tplan.T].astype(np.int64)
+                rows.append(np.broadcast_to(
+                    br[:, None, None] * cs + ar[None, :, None],
+                    ov.shape).ravel())
+                cols.append(np.broadcast_to(
+                    bc[:, None, None] * cs + ar[None, None, :],
+                    ov.shape).ravel())
+                vals.append(ov.ravel())
+            r, c, v = map(np.concatenate, (rows, cols, vals))
+            m = (r < nf) & (c < nf) & (v != 0.0)
+            M = sp.coo_matrix((v[m], (r[m], c[m])), shape=(nf, nf)).tocsc()
+            M.sort_indices()
+            return M
+
+        self._factors.L = tocsc(self.plan.lplan, self.ldata)
+        self._factors.U = tocsc(self.plan.uplan, self.udata)
+        # the device refactorization also recomputed the row equilibration
+        self.plan.Rs = np.asarray(self.Rs, dtype=np.float64)
+        # re-plan on the SAME tile sets so the per-nonzero pack maps fit
+        # the materialized factors (tile ids, levels and waves unchanged)
+        for attr, M in (("lplan", self._factors.L),
+                        ("uplan", self._factors.U)):
+            tp = getattr(self.plan, attr)
+            extra = list(zip(tp.tile_brow[: tp.T].tolist(),
+                             tp.tile_bcol[: tp.T].tolist()))
+            new = plan_triangular(M, tp.cs, lower=tp.lower,
+                                  extra_tiles=extra)
+            if (new.T, new.K) != (tp.T, tp.K):
+                raise RuntimeError("materialized factors left the tile "
+                                   "plan they were factored on")
+            setattr(self.plan, attr, new)
 
     @property
     def p(self) -> np.ndarray:
@@ -306,7 +483,11 @@ class ParallelSparseLU:
 
     @property
     def Rs(self) -> np.ndarray:
-        return self._factors.Rs
+        rs = self._factors.Rs
+        if isinstance(rs, torch.Tensor):  # after a device refactorization
+            rs = rs.double().cpu().numpy()
+            self._factors.Rs = rs
+        return rs
 
     @property
     def chunk_size(self) -> int:
@@ -349,6 +530,10 @@ class ParallelSparseLU:
         # Rs in input row order: the perm-in scales before it permutes
         self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
                                    device=dev)
+        # the nd embedding's position of each input row, for the Rs of a
+        # device refactorization
+        self._ext_pos_dev = None if self._ext is None else torch.as_tensor(
+            self._ext["pos"], dtype=torch.int64, device=dev)
 
     # -- solves -------------------------------------------------------------
     def _as_rhs(self, b, n=None):
@@ -371,12 +556,19 @@ class ParallelSparseLU:
         ``plain=True`` runs the plain PyTorch version of every kernel; it
         exists to hold the kernel path against it on the card.
         """
+        return self._solve_with(self.ldata, self.udata, self._rs, b,
+                                plain=plain)
+
+    def _solve_with(self, ldata: TriKernelData, udata: TriKernelData,
+                    rs: torch.Tensor, b: torch.Tensor, *,
+                    plain: bool = False) -> torch.Tensor:
+        """:meth:`_direct_solve` with the given banks and row scaling."""
         gather = perm_gather_plain if plain else perm_gather
         R = b.shape[1]
-        xw = gather(b, self._pidx, self._rs).view(
+        xw = gather(b, self._pidx, rs).view(
             self.plan.lplan.K + 1, self.plan.cs, R)
-        blocked_tri_solve(self.ldata, xw, plain=plain)
-        blocked_tri_solve(self.udata, xw, plain=plain)
+        blocked_tri_solve(ldata, xw, plain=plain)
+        blocked_tri_solve(udata, xw, plain=plain)
         return gather(xw.view(-1, R), self._qidx)
 
     def lsolve(self, b) -> torch.Tensor:
@@ -426,6 +618,9 @@ class ParallelSparseLU:
         (src:274-276). ``A=None`` is a no-op re-pack (src:246).
         """
         if A is None:
+            # after a device refactorization the host csc values are
+            # stale: sync them first, or the re-pack restores the old ones
+            self._materialize_factors()
             self._prepare_device()
             return
         A = sp.csc_matrix(A)
@@ -459,6 +654,9 @@ class ParallelSparseLU:
         self._a_factor_pattern = (A_factor.indptr.copy(),
                                   A_factor.indices.copy())
         self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
+        # the pivots (and maybe the pattern) moved: the static-pivot
+        # refactorization schedule is stale, and the host values are fresh
+        self._init_refactor_state()
         self._set_matrix(A)
         if reallocate:
             self.plan = build_symbolic_plan(new_factors, self.plan.cs)
@@ -472,32 +670,184 @@ class ParallelSparseLU:
             self.plan.qinv = np.argsort(new_factors.q).astype(np.int32)
         self._prepare_device()
 
+    # -- device refactorization ----------------------------------------------
+    @property
+    def has_device_refactor(self) -> bool:
+        return self._refactor_plan is not None
+
+    def enable_device_refactor(self, *,
+                               store_budget: Optional[int] = None) -> None:
+        """Build (once) the static device-refactorization schedule.
+
+        Rebuilds the solve plans on the blocked-fill closure of the input
+        pattern (a tile superset of the factors' own patterns), so the
+        eliminated tiles feed the solve directly, re-packs the current
+        factors onto them and builds their waves once.
+
+        ``store_budget`` — working-set ceiling in bytes for the memory
+        guard (default: ``SolverConfig.refactor_store_budget``, else the
+        device's free memory, ``torch.cuda.mem_get_info`` on a card).
+        """
+        if self._refactor_plan is not None:
+            return
+        if store_budget is None:
+            store_budget = self.config.refactor_store_budget
+        limit = store_budget if store_budget else _free_bytes(self.device)
+        from .refactor import (
+            build_refactor_plan,
+            closure_solve_plans,
+            upload_refactor_plan,
+        )
+
+        # the refactor plan lives on the factored pattern (the extension
+        # under ordering="nd")
+        indptr, indices = self._a_factor_pattern
+        nf = indptr.shape[0] - 1
+        A_pat = sp.csc_matrix(
+            (np.ones(indices.shape[0]), indices, indptr), shape=(nf, nf)
+        )
+        lplan, uplan = closure_solve_plans(
+            A_pat, self._factors.L, self._factors.U,
+            self._factors.p, self._factors.q, self.plan.cs,
+        )
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        cs = self.plan.cs
+        K = -(-nf // cs)
+
+        def refuse(nbytes: int, detail: str) -> None:
+            raise RuntimeError(
+                "device refactorization needs a working set of "
+                f"~{nbytes / 1e9:.1f} GB ({detail}), above the budget "
+                f"({limit / 1e9:.1f} GB). Use the host refactor() path, a "
+                "smaller chunk_size, ordering='colamd' for this matrix, or "
+                "raise the budget via enable_device_refactor("
+                "store_budget=...) / SolverConfig.refactor_store_budget."
+            )
+
+        # fail fast before the host scheduling: a 4x envelope over the
+        # merged tile store (store, the two solve banks, the assembly)
+        store_bytes = 4 * (lplan.T + uplan.T + K) * cs ** 2 * itemsize
+        if store_bytes > limit:
+            refuse(store_bytes, "dense tile store of the elimination "
+                   "closure + solve extraction")
+        rp = build_refactor_plan(
+            A_pat, self._factors.p, self._factors.q, cs, lplan, uplan,
+            data_src=None if self._ext is None else self._ext["data_src"],
+        )
+        # precise guard now that the levels exist: the per-level inverse
+        # stacks (2 * NL * BL tiles) and the unpermuted assembly store
+        BL = rp.diag_ids.shape[1]
+        extra = (2 * rp.NL * BL + rp.asm.TF2 + 1) * cs ** 2 * itemsize
+        if store_bytes + extra > limit:
+            refuse(store_bytes + extra, "tile store + per-level inverse "
+                   "stacks + assembly store")
+        self.plan.lplan = lplan
+        self.plan.uplan = uplan
+        self._refactor_dev = upload_refactor_plan(rp, self.device)
+        self._refactor_plan = rp
+        self._prepare_device()
+
+    def refactor_numeric(self, A: sp.spmatrix, *, check: bool = False,
+                         growth_limit: float = 1e7,
+                         plain: bool = False) -> bool:
+        """Same-pattern numeric refactorization on the device (static
+        pivots): the counterpart of UMFPACK's numeric-only ``lu!``
+        (reference src:247). Reuses the frozen pivot order, fill pattern
+        and tile plan, and recomputes only values: span-gather assembly,
+        blocked elimination, solve banks. ``A`` must have the pattern this
+        factorization was built from (``ValueError`` otherwise).
+
+        No numerical re-pivoting happens. ``self.refactor_diagnostics``
+        afterwards holds 0-d device tensors ``min_pivot`` and ``growth``
+        (max |factor entry| of the equilibrated system, ~1 for benign
+        updates). ``check=False`` is the default on purpose, as in the JAX
+        package: it keeps the call free of device synchronisation, so a
+        hostile value change goes undetected unless the caller asks. With
+        ``check=True`` the diagnostics are synced, and non-finite growth,
+        growth above ``growth_limit`` or a zero pivot falls back to the
+        host ``refactor`` (which re-pivots) and returns False. Returns True
+        when the device factorization was kept.
+
+        ``plain=True`` runs the plain PyTorch version of every kernel; it
+        exists to hold the kernel path against it on the card.
+        """
+        from .refactor import refactor_same_pattern
+
+        return refactor_same_pattern(
+            self, sp.csc_matrix(A), check=check, growth_limit=growth_limit,
+            plain=plain,
+        )
+
+    def make_refactor_solve_step(self, *, refine_steps: int = 0):
+        """The fused step of a time-stepper: ``step(a_data, b) -> x``, with
+        ``a_data`` A's new nonzero values (same pattern, original CSC
+        order) and ``b`` an ``(n,)`` or ``(n, R)`` right-hand side.
+
+        Refactorizes on the device (static pivots) and solves, with no
+        host synchronisation — the reference lifecycle's inner loop (update
+        coefficients → ``lu!`` → ``ldiv!``, test/runtests.jl:108-188).
+        Does not change F's state; call ``refactor_numeric`` for that.
+
+        ``refine_steps`` — refinement sweeps ``x += solve(b - A x)`` with
+        ``A`` built from ``a_data`` on the device. A step made before a
+        host ``refactor()`` raises ``RuntimeError``: that call rebuilt the
+        schedule the step closes over.
+        """
+        from .refactor import refactor_pipeline
+
+        self.enable_device_refactor()
+        rp, dev = self._refactor_plan, self._refactor_dev
+        nnz = self._csc_to_csr.shape[0]
+        steps = int(refine_steps)
+
+        def step(a_data, b):
+            if self._refactor_plan is not rp:
+                raise RuntimeError(
+                    "stale refactor-solve step: refactor() rebuilt the "
+                    "factorization after this step was created; call "
+                    "make_refactor_solve_step() again"
+                )
+            a = torch.as_tensor(a_data, dtype=self.dtype, device=self.device)
+            if a.shape != (nnz,):
+                raise ValueError(f"a_data must hold the {nnz} values of A's "
+                                 f"pattern, got shape {tuple(a.shape)}")
+            b, squeeze = self._as_rhs(b)
+            out = refactor_pipeline(a, dev)
+            ldata = tri_kernel_from_bank(self.ldata, out["lbank"],
+                                         out["ldiag"])
+            udata = tri_kernel_from_bank(self.udata, out["ubank"],
+                                         out["udiag"])
+            rs = out["rs"]
+            if self._ext_pos_dev is not None:
+                rs = rs[self._ext_pos_dev]
+            x = self._solve_with(ldata, udata, rs, b)
+            if steps:
+                A_new = self._csr_matrix(a)
+                for _ in range(steps):
+                    x = x + self._solve_with(ldata, udata, rs, b - A_new @ x)
+            return x[:, 0] if squeeze else x
+
+        return step
+
     # -- not ported yet -----------------------------------------------------
-    def refactor_numeric(self, A, **kwargs):
-        _not_ported("refactor_numeric", _DEVICE_REFACTOR)
-
-    def make_refactor_solve_step(self, **kwargs):
-        _not_ported("make_refactor_solve_step", _DEVICE_REFACTOR)
-
-    def enable_device_refactor(self, **kwargs):
-        _not_ported("enable_device_refactor", _DEVICE_REFACTOR)
-
     def make_f64_ldiv(self, **kwargs):
         _not_ported("make_f64_ldiv",
                     "ROADMAP.md queue A item 9 (f64 tier)")
 
     def save(self, path, **kwargs):
-        _not_ported("save", "ROADMAP.md queue A item 11 (persistence)")
+        _not_ported("save", _PERSISTENCE)
 
     @classmethod
     def from_saved(cls, A, path, **kwargs):
-        _not_ported("from_saved", "ROADMAP.md queue A item 11 (persistence)")
+        _not_ported("from_saved", _PERSISTENCE)
 
     def close(self) -> None:
-        """Release the device buffers (the reference's exported
-        ``cleanup_ParallelSparseLU!``, src:31)."""
+        """Release the device buffers, the refactorization's included (the
+        reference's exported ``cleanup_ParallelSparseLU!``, src:31)."""
         self.ldata = self.udata = None
         self._A_dev = self._pidx = self._qidx = self._rs = None
+        self._csr_pattern = self._csc_to_csr = self._ext_pos_dev = None
+        self._init_refactor_state()
 
 
 def cleanup_ParallelSparseLU(F: ParallelSparseLU) -> None:

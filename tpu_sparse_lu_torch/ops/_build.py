@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
+          "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -56,24 +56,43 @@ def _sources():
     return srcs
 
 
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc: subprocess.Popen, cmd) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def _compile(srcs, out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     # build beside the target and rename: a concurrent build never sees
     # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, jobs = [], []
+        try:
+            for src in srcs:
+                obj = str(Path(tmp) / (src.stem + ".o"))
+                cmd = [nvcc, *_FLAGS, "-c", "-o", obj, str(src)]
+                objs.append(obj)
+                jobs.append((_run(cmd), cmd))
+            for proc, cmd in jobs:
+                _wait(proc, cmd)
+        finally:
+            for proc, _ in jobs:  # after a failure, stop the others
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        so = str(Path(tmp) / out.name)
+        cmd = [nvcc, *_FLAGS, "-shared", "-o", so, *objs]
+        _wait(_run(cmd), cmd)
+        os.replace(so, out)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -85,11 +104,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f = getattr(lib, f"ldiv_wave_apply_{dt}")
         f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
         f.restype = I
+        f = getattr(lib, f"span_gather_{dt}")
+        f.argtypes = [P, P, P, P, P, L, L, I, P]
+        f.restype = I
+        f = getattr(lib, f"lu_tile_{dt}")
+        f.argtypes = [P, P, I, P, P, P, I, P]
+        f.restype = I
+        f = getattr(lib, f"tile_mm_{dt}")
+        f.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+        f.restype = I
     lib.ldiv_error_string.argtypes = [I]
     lib.ldiv_error_string.restype = ctypes.c_char_p
     lib.ldiv_max_chunk.argtypes = []
     lib.ldiv_max_chunk.restype = I
-    lib.max_chunk = lib.ldiv_max_chunk()  # largest chunk_size it takes
+    # largest chunk_size the kernels take (every kernel holds a tile of up
+    # to 128 rows in shared memory or registers)
+    lib.max_chunk = lib.ldiv_max_chunk()
     return lib
 
 
@@ -106,7 +136,7 @@ def load() -> ctypes.CDLL:
             for s in srcs:
                 h.update(s.name.encode())
                 h.update(s.read_bytes())
-            so = _BUILD_DIR / f"libldiv_{h.hexdigest()[:16]}.so"
+            so = _BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
             if not so.exists():
                 _compile(srcs, so)
             _lib = _bind(ctypes.CDLL(str(so)))

@@ -30,6 +30,12 @@ import numpy as np
 import torch
 
 from ..symbolic import TriPlan
+from ._launch import KERNEL_DTYPES as _KERNEL_DTYPES
+from ._launch import check as _check
+from ._launch import device_kind as _device_kind
+from ._launch import lib as _lib
+from ._launch import require as _require
+from ._launch import stream as _stream
 
 __all__ = [
     "Wave",
@@ -40,9 +46,6 @@ __all__ = [
     "wave_apply",
     "wave_apply_plain",
 ]
-
-_KERNEL_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
-
 
 @dataclasses.dataclass
 class Wave:
@@ -130,47 +133,6 @@ def build_waves(plan: TriPlan, device) -> List[Wave]:
         dst = sorted(by_dst)
         waves.append(make_wave(dst, [by_dst[d] for d in dst], True, device))
     return waves
-
-
-# ---------------------------------------------------------------------------
-# kernel launch plumbing
-# ---------------------------------------------------------------------------
-
-
-def _lib():
-    from . import _build
-
-    return _build.load()
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream of ``t``'s device: the lookup
-    Triton's launcher makes, ~0.2 µs a call where
-    ``torch.cuda.current_stream(device).cuda_stream`` takes ~6 µs
-    (measured on an H100 host), paid on every launch."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().ldiv_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _device_kind(first: torch.Tensor, *rest: torch.Tensor) -> str:
-    """``"cpu"`` or ``"cuda"`` when every tensor lies on that one device."""
-    dev = first.device
-    for t in rest:
-        _require(t.device == dev,
-                 f"tensors on several devices: {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no ldiv kernel for device type {dev.type!r}")
-    return dev.type
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ compile-time concern of XLA and is not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -34,6 +34,7 @@ from .symbolic import TriPlan
 __all__ = [
     "TriKernelData",
     "prepare_tri_kernel",
+    "tri_kernel_from_bank",
     "blocked_tri_solve",
     "block_rhs",
     "unblock_rhs",
@@ -47,12 +48,17 @@ class TriKernelData:
     ``tiles_t`` is the factor's tile bank, every tile transposed (the
     layout the kernel reads coalesced): the ``K+1`` diagonal-tile inverses,
     then the ``T+1`` negated off-diagonal tiles, dummy slots included.
+    ``diag`` keeps the ``K+1`` diagonal tiles themselves where the bank was
+    made on the device (a device refactorization), for
+    ``ParallelSparseLU``'s host factors; ``None`` after a host pack, whose
+    host factors are current.
     """
 
     K: int
     T: int
     tiles_t: torch.Tensor  # (K+1+T+1, cs, cs)
     waves: List[Wave]
+    diag: Optional[torch.Tensor] = None  # (K+1, cs, cs)
 
     @property
     def diag_inv(self) -> torch.Tensor:
@@ -76,6 +82,17 @@ def prepare_tri_kernel(plan: TriPlan, diag: torch.Tensor,
     tiles_t = torch.cat([diag_inv, offdiag]).transpose(1, 2).contiguous()
     return TriKernelData(K=plan.K, T=plan.T, tiles_t=tiles_t,
                          waves=build_waves(plan, diag.device))
+
+
+def tri_kernel_from_bank(prev: TriKernelData, tiles_t: torch.Tensor,
+                         diag: torch.Tensor) -> TriKernelData:
+    """``prev`` with a new bank (same plan, same layout): its waves are
+    reused, so nothing is re-planned, re-inverted or read back from the
+    device."""
+    if tiles_t.shape != prev.tiles_t.shape:
+        raise ValueError(f"bank {tuple(tiles_t.shape)} does not match the "
+                         f"plan's {tuple(prev.tiles_t.shape)}")
+    return dataclasses.replace(prev, tiles_t=tiles_t, diag=diag)
 
 
 def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,

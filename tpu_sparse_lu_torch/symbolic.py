@@ -222,11 +222,16 @@ def _level_schedule(ub: np.ndarray, uc: np.ndarray, K: int, lower: bool) -> np.n
     return level
 
 
-def plan_triangular(M: sp.csc_matrix, cs: int, *, lower: bool) -> TriPlan:
+def plan_triangular(
+    M: sp.csc_matrix, cs: int, *, lower: bool, extra_tiles=None
+) -> TriPlan:
     """Build the tile plan + level schedule for one triangular factor.
 
-    (The JAX package's ``extra_tiles`` argument serves its device
-    refactorization, which is not ported yet.)
+    ``extra_tiles`` — optional iterable of (brow, bcol) chunk-grid
+    coordinates to include beyond the factor's own nonzero tiles. The
+    device refactorization (``refactor.closure_solve_plans``) passes the
+    blocked-fill closure, so the solve plans cover every tile the
+    elimination produces and consume its tiles directly.
     """
     M = sp.csc_matrix(M)
     n = M.shape[0]
@@ -237,6 +242,18 @@ def plan_triangular(M: sp.csc_matrix, cs: int, *, lower: bool) -> TriPlan:
 
     indptr, rows = M.indptr, M.indices
     nnz = rows.shape[0]
+
+    extra_keys = np.zeros(0, dtype=np.int64)
+    if extra_tiles is not None:
+        extra = np.asarray(sorted(set(map(tuple, extra_tiles))),
+                           dtype=np.int64)
+        if extra.size:
+            bad = (extra[:, 0] <= extra[:, 1] if lower
+                   else extra[:, 0] >= extra[:, 1])
+            if np.any(bad):
+                raise ValueError("extra_tiles on the wrong side of the "
+                                 "diagonal")
+            extra_keys = extra[:, 0] * np.int64(K) + extra[:, 1]
 
     # --- tile keys --------------------------------------------------------
     cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
@@ -256,6 +273,8 @@ def plan_triangular(M: sp.csc_matrix, cs: int, *, lower: bool) -> TriPlan:
     # Tiles are keyed as brow*K + bcol; np.unique on keys replaces any
     # per-nonzero Python loop (23s -> ms at n=250k).
     od_keys = brow[offdiag_mask] * np.int64(K) + bcol[offdiag_mask]
+    if extra_keys.size:
+        od_keys = np.concatenate([od_keys, extra_keys])
     uniq_keys = np.unique(od_keys)
     T = uniq_keys.shape[0]
     ub = uniq_keys // K

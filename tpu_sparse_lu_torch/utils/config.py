@@ -16,10 +16,6 @@ _NOT_YET = {
     ("tri_mode", "trsm"): "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
     ("tri_mode", "inv_refine"):
         "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
-    ("factorize", "device"):
-        "ROADMAP.md queue A item 6 (device refactorization)",
-    ("factorize", "auto"):
-        "ROADMAP.md queue A item 6 (device refactorization)",
     ("stream_dtype", "bfloat16"):
         "ROADMAP.md queue A item 10 (bfloat16 tile stream)",
 }
@@ -45,7 +41,15 @@ class SolverConfig:
         ``"auto"`` (tries {cs, 2cs, 4cs} under the tile-count cost model,
         one trial factorization each).
       stream_dtype: dtype of the L/U tiles the solve reads; ``"float32"``.
-      factorize: first-factorization backend; ``"host"`` (SuperLU).
+      factorize: first-factorization backend. ``"host"`` (default):
+        SuperLU. ``"device"``: no numeric host factorization; the first
+        factorization is the blocked device elimination of
+        ``refactor.py``, which needs a static-diagonal-pivot ordering
+        (``"nd"``, or ``"natural"`` with ``pivot_threshold=0.0``).
+        ``"auto"``: ``"device"`` under such an ordering, else ``"host"``.
+      refactor_store_budget: working-set ceiling in bytes for
+        ``enable_device_refactor``'s memory guard; ``None`` takes the free
+        memory of the solver's device.
     """
 
     chunk_size: Optional[int] = None
@@ -56,6 +60,7 @@ class SolverConfig:
     nd_cutoff: object = None  # None | int | "auto"
     stream_dtype: str = "float32"
     factorize: str = "host"
+    refactor_store_budget: Optional[int] = None
 
     def __post_init__(self):
         for field, value in (("tri_mode", self.tri_mode),
@@ -77,7 +82,7 @@ class SolverConfig:
             raise ValueError(f"unknown nd_cutoff: {self.nd_cutoff!r}")
         if self.stream_dtype != "float32":
             raise ValueError(f"unknown stream_dtype: {self.stream_dtype!r}")
-        if self.factorize != "host":
+        if self.factorize not in ("host", "device", "auto"):
             raise ValueError(f"unknown factorize: {self.factorize!r}")
 
 
