@@ -41,7 +41,35 @@ Phases, one line of output each; any failure raises and exits non-zero:
    ``bench.py:261-270``);
 9. timing (CUDA events, medians): the config-2 step, ``refactor_numeric``
    on both deployments with the kernels against ``plain=True``, and each
-   refactorization kernel at the headline's shapes.
+   refactorization kernel at the headline's shapes;
+10. the chain kernel (B5, ``bidiag_ldiv``) against its plain version on
+    seeded random bands (|a| <= 0.9) at n in {7, 128, 257, 5000, 20000,
+    1,048,577} and R in {1, 3, 16}, float32 and float64, both sweeps and
+    each alone (bound: max relative difference 1e-5 / 1e-12); on config
+    1's real float32 planes (a chain of near-unit multipliers) kernel and
+    plain against the float64 scan of the same planes (1e-4); and
+    ``wave_apply_bf16`` against its plain version on the headline's real
+    waves with the bfloat16 tile stream (1e-5: both widen exactly);
+11. BASELINE config 1 at full size (``laplacian_1d(20000)``, natural,
+    ``pivot_threshold=0.0``, chunk_size=128, float32): bands and identity
+    permutations detected, ``ldiv`` at R = 1 and 16 with one
+    ``bidiag_ldiv`` launch and no wave per call and backward error < 1e-3,
+    a float64 chain solver within 1e-10 of ``spsolve``, then host
+    ``refactor`` (bands re-detected) and ``refactor_numeric`` (bands
+    cleared, the waves serve), each followed by a checked ``ldiv``;
+12. the f64 tier on the headline: float32 ``make_f64_ldiv`` within 1e-12
+    of ``spsolve`` in <= 2 sweeps; ``stream_dtype="bfloat16"`` with a
+    direct error in (1e-6, 3e-2), through ``wave_apply_bf16`` only, and
+    within 1e-12 after at most 8 sweeps (``BF16_SWEEPS``); after
+    ``refactor_numeric`` (values scaled by 1 + 0.2 U(0, 1)) a fresh
+    callable within 1e-12 of the new matrix's ``spsolve`` in <= 3 sweeps
+    and the old one refused;
+13. timing (CUDA events, medians): config 1's ``ldiv`` at R = 1 and 16
+    through the chain kernel, its plain scan and the tile waves;
+    ``bidiag_ldiv`` at n = 1,048,577; the headline ``ldiv`` at R = 16 with
+    the bfloat16 stream against float32, its waves against their plain
+    version; and ``make_f64_ldiv`` at R = 16 with the fewest sweeps that
+    meet 1e-12, float32 and bfloat16 streams.
 
 Then one JSON line on the kernels, and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
@@ -79,7 +107,21 @@ KERNELS = {
                 "tpu_sparse_lu/ops/pallas_factor.py:38"),
     "tile_mm": ("tpu_sparse_lu_torch/csrc/elim.cu",
                 "tpu_sparse_lu/ops/pallas_elim.py:125"),
+    "wave_apply_bf16": ("tpu_sparse_lu_torch/csrc/ldiv.cu",
+                        "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
+    "bidiag_ldiv": ("tpu_sparse_lu_torch/csrc/bidiag.cu",
+                    "tpu_sparse_lu/ops/scan_solve.py:181"),
 }
+# BASELINE config 1 (bench.py:225-241): the 1-D chain, single RHS
+CONFIG1 = dict(n=20000, chunk_size=128)
+CHAIN_NS = (7, 128, 257, 5000, 20000, 1_048_577)
+# make_f64_ldiv sweeps tried with the bfloat16 stream at the headline:
+# each contracts the error by ~0.03 there (kappa(A) ~ 6e3 against bf16's
+# 8-bit mantissa), so 1e-12 takes ~6-8 sweeps
+BF16_SWEEPS = (2, 4, 6, 8)
+# config 1's real float32 planes against the float64 scan of the same
+# planes (max relative difference); the plain scan itself reads ~6e-5
+CHAIN_REAL_TOL = 1e-4
 
 
 def _rel(got, ref) -> float:
@@ -123,14 +165,15 @@ def _backward_error(A, X, B) -> float:
     )
 
 
-def _headline_solver(dtype: str):
+def _headline_solver(dtype: str, stream_dtype: str = "float32"):
     from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
     from tpu_sparse_lu_torch.models import poisson_2d
 
     A = poisson_2d(HEADLINE["nx"], HEADLINE["ny"])
     cfg = SolverConfig(chunk_size=HEADLINE["chunk_size"],
                        ordering=HEADLINE["ordering"],
-                       nd_cutoff=HEADLINE["nd_cutoff"], dtype=dtype)
+                       nd_cutoff=HEADLINE["nd_cutoff"], dtype=dtype,
+                       stream_dtype=stream_dtype)
     return A, ParallelSparseLU(A, config=cfg, device="cuda")
 
 
@@ -561,18 +604,24 @@ def phase_refactor_kernels_vs_plain():
     return err
 
 
-def _reset_launches():
+def _reset_launches(*names):
+    """Set every kernel's launch count to 0; returns a reader of the
+    counts of ``names``."""
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
-    from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather, wave_apply
+    from tpu_sparse_lu_torch.ops.fused_ldiv import (
+        perm_gather, wave_apply, wave_apply_bf16,
+    )
     from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
     from tpu_sparse_lu_torch.ops.span_gather import span_gather
 
     fns = {"perm_gather": perm_gather, "wave_apply": wave_apply,
            "span_gather": span_gather, "lu_tile": lu_tile,
-           "tile_mm": tile_mm}
+           "tile_mm": tile_mm, "wave_apply_bf16": wave_apply_bf16,
+           "bidiag_ldiv": bidiag_ldiv}
     for f in fns.values():
         f.LAUNCHES = 0
-    return lambda: {k: f.LAUNCHES for k, f in fns.items()}
+    return lambda: {k: fns[k].LAUNCHES for k in names}
 
 
 def phase_device_lifecycle():
@@ -581,7 +630,8 @@ def phase_device_lifecycle():
 
     rng = np.random.default_rng(5)
     R = HEADLINE["R"]
-    read = _reset_launches()
+    read = _reset_launches("perm_gather", "wave_apply", "span_gather",
+                           "lu_tile", "tile_mm")
     t0 = time.perf_counter()
     A, F = _device_headline("float32")
     torch.cuda.synchronize()
@@ -647,7 +697,8 @@ def phase_config2_step():
     import torch
 
     rng = np.random.default_rng(6)
-    read = _reset_launches()
+    read = _reset_launches("perm_gather", "wave_apply", "span_gather",
+                           "lu_tile", "tile_mm")
     A, F = _config2_solver()
     step = F.make_refactor_solve_step()
     A_chk = A.copy()
@@ -750,6 +801,357 @@ def phase_refactor_timing(A2c, F2c, step, smi):
     return ms
 
 
+def _random_planes(rng, n, tdt):
+    """Seeded affine planes of a stable chain: |a| <= 0.9, s in [0.5, 1.5]."""
+    import torch
+
+    def t(v):
+        return torch.as_tensor(v, dtype=tdt, device="cuda")
+
+    return ((t(rng.uniform(-0.9, 0.9, n)), t(rng.uniform(0.5, 1.5, n))),
+            (t(rng.uniform(-0.9, 0.9, n)), t(rng.uniform(0.5, 1.5, n))))
+
+
+def phase_chain_and_bf16_kernels_vs_plain():
+    """Returns the max abs differences on the real inputs: config 1's
+    planes at R = 1 (``bidiag_ldiv``) and the headline's waves with the
+    bfloat16 stream (``wave_apply_bf16``)."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import (
+        bidiag_ldiv, bidiag_ldiv_plain,
+    )
+    from tpu_sparse_lu_torch.ops.fused_ldiv import (
+        perm_gather_plain, wave_apply_bf16, wave_apply_plain,
+    )
+
+    rng = np.random.default_rng(10)
+    worst = {"float32": 0.0, "float64": 0.0}
+    for dt in ("float32", "float64"):
+        tdt = getattr(torch, dt)
+        for n in CHAIN_NS:
+            lower, upper = _random_planes(rng, n, tdt)
+            for R in (1, 3, 16):
+                b = torch.as_tensor(rng.standard_normal((n, R)), dtype=tdt,
+                                    device="cuda")
+                for planes in ({"lower": lower, "upper": upper},
+                               {"lower": lower}, {"upper": upper}):
+                    r = _rel(bidiag_ldiv(b, **planes),
+                             bidiag_ldiv_plain(b, **planes))
+                    if not r <= TOL[dt]:
+                        raise AssertionError(
+                            f"bidiag_ldiv differs from plain: {r:.3e} > "
+                            f"{TOL[dt]:g} ({dt}, n={n}, R={R}, "
+                            f"{sorted(planes)})")
+                    worst[dt] = max(worst[dt], r)
+    # the real planes of config 1, float32, R = 1
+    A, F = _config1_solver()
+    sp_ = F._scan_planes
+    b = torch.as_tensor(rng.random((A.shape[0], 1)), dtype=torch.float32,
+                        device="cuda")
+    got = F._chain_solve(b)
+    ref = F._chain_solve(b, plain=True)
+    err = {"bidiag_ldiv": float((got - ref).abs().max())}
+    rel_chain = _rel(got, ref)
+    # both against the float64 scan of the same float32 planes: a chain of
+    # near-unit multipliers (kappa(A) ~ 1.6e8) keeps float32 rounding of
+    # the order of 1e-5 in any evaluation order
+    ref64 = bidiag_ldiv_plain(
+        b.double(), lower=(sp_["aL"].double(), sp_["sL"].double()),
+        upper=(sp_["aU"].double(), sp_["sU"].double()))
+    acc = {"kernel": _rel(got, ref64), "plain": _rel(ref, ref64)}
+    if not (acc["kernel"] <= CHAIN_REAL_TOL
+            and rel_chain <= 2 * CHAIN_REAL_TOL):
+        raise AssertionError(f"config 1 chain: kernel differs from plain "
+                             f"{rel_chain:.3e}, from the float64 scan "
+                             f"{acc['kernel']:.3e}")
+    if sp_["aL"].shape != (A.shape[0],):
+        raise AssertionError(f"config 1 planes {tuple(sp_['aL'].shape)}")
+
+    # the headline's real waves with the bfloat16 tile stream
+    A, Fb = _headline_solver("float32", stream_dtype="bfloat16")
+    R = HEADLINE["R"]
+    b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=torch.float32,
+                        device="cuda")
+    x = perm_gather_plain(b, Fb._pidx, Fb._rs).view(
+        Fb.plan.lplan.K + 1, Fb.plan.cs, R)
+    err["wave_apply_bf16"] = 0.0
+    rel_bf = 0.0
+    for data in (Fb.ldata, Fb.udata):
+        if data.tiles_bf16.dtype != torch.bfloat16:
+            raise AssertionError(f"stream is {data.tiles_bf16.dtype}")
+        for w in data.waves:
+            got = wave_apply_bf16(x.clone(), data.tiles_bf16, w)
+            x = wave_apply_plain(x, data.tiles_bf16, w)
+            err["wave_apply_bf16"] = max(err["wave_apply_bf16"],
+                                         float((got - x).abs().max()))
+            rel_bf = max(rel_bf, _rel(got, x))
+    if not rel_bf <= TOL["float32"]:
+        raise AssertionError(f"headline bf16 waves: kernel differs from "
+                             f"plain {rel_bf:.3e}")
+    print(f"phase 10 chain + bf16 kernels vs plain: bidiag_ldiv max rel diff "
+          f"random f32 {worst['float32']:.3e} f64 {worst['float64']:.3e} "
+          f"(bounds 1e-5/1e-12; n in {list(CHAIN_NS)}, R in [1, 3, 16], "
+          f"both sweeps and each alone); config 1 real planes R=1 "
+          f"kernel vs plain {rel_chain:.3e} (bound {2 * CHAIN_REAL_TOL:g}), "
+          f"max abs {err['bidiag_ldiv']:.3e}, vs the float64 scan kernel "
+          f"{acc['kernel']:.3e} (bound {CHAIN_REAL_TOL:g}) plain "
+          f"{acc['plain']:.3e}; headline "
+          f"bf16 stream {len(Fb.ldata.waves) + len(Fb.udata.waves)} waves "
+          f"{rel_bf:.3e} (bound 1e-5), max abs "
+          f"{err['wave_apply_bf16']:.3e}")
+    return err
+
+
+def _config1_solver(dtype: str = "float32", A=None):
+    """BASELINE config 1 (bench.py:225-241): the 1-D Laplacian chain,
+    natural ordering, no pivoting, host factorization."""
+    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
+    from tpu_sparse_lu_torch.models import laplacian_1d
+
+    A = laplacian_1d(CONFIG1["n"]) if A is None else A
+    cfg = SolverConfig(chunk_size=CONFIG1["chunk_size"], ordering="natural",
+                       pivot_threshold=0.0, dtype=dtype)
+    return A, ParallelSparseLU(A, config=cfg, device="cuda")
+
+
+def phase_config1():
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
+    from tpu_sparse_lu_torch.ops.fused_ldiv import wave_apply
+
+    rng = np.random.default_rng(11)
+    read = _reset_launches("bidiag_ldiv", "wave_apply", "perm_gather")
+    t0 = time.perf_counter()
+    A, F = _config1_solver()
+    build_s = time.perf_counter() - t0
+    if F._scan_bands is None or not F._scan_perm_id:
+        raise AssertionError("config 1: bands or identity perms not "
+                             "detected")
+
+    def solve_checked(M, tag, R, chain=True):
+        shape = (M.shape[0],) if R == 1 else (M.shape[0], R)
+        b = rng.random(shape).astype(np.float32)
+        before = (bidiag_ldiv.LAUNCHES, wave_apply.LAUNCHES)
+        x = F.ldiv(b)
+        torch.cuda.synchronize()
+        after = (bidiag_ldiv.LAUNCHES, wave_apply.LAUNCHES)
+        if chain and (after[0] - before[0], after[1] - before[1]) != (1, 0):
+            raise AssertionError(f"{tag}: ldiv at R={R} launched "
+                                 f"{after[0] - before[0]} bidiag_ldiv and "
+                                 f"{after[1] - before[1]} waves")
+        if x.device.type != "cuda" or x.shape != shape:
+            raise AssertionError(f"{tag}: ldiv result {x.shape} on "
+                                 f"{x.device}")
+        x = x.cpu().numpy()
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{tag}: ldiv result is not finite")
+        e = _backward_error(M, x, b)
+        if not e < 1e-3:
+            raise AssertionError(f"{tag}: backward error {e:.3e} at R={R}")
+        return e
+
+    e = {R: solve_checked(A, "config 1", R) for R in (1, 16)}
+    launches = read()
+    # float64 chain solver against scipy
+    _, F64 = _config1_solver("float64", A)
+    if F64._scan_bands is None or not F64._scan_perm_id:
+        raise AssertionError("config 1 float64: chain not detected")
+    b64 = rng.random((A.shape[0], 3))
+    x64 = F64.ldiv(b64)
+    if x64.dtype != torch.float64:
+        raise AssertionError(f"f64 chain result {x64.dtype}")
+    ref = spla.spsolve(A.tocsc(), b64)
+    rel64 = np.linalg.norm(x64.cpu().numpy() - ref) / np.linalg.norm(ref)
+    if not rel64 <= 1e-10:
+        raise AssertionError(f"f64 chain solve off scipy by {rel64:.3e}")
+    # host refactor with new values: the bands are detected anew
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
+    F.refactor(A2)
+    if F._scan_bands is None or not F._scan_perm_id:
+        raise AssertionError("host refactor: bands not re-detected")
+    e_ref = solve_checked(A2, "host refactor", 1)
+    # device refactorization: the bands are stale and cleared
+    A3 = A.copy()
+    A3.data = A3.data * (1.0 + 0.1 * rng.random(A3.nnz))
+    F.refactor_numeric(A3)
+    if F._scan_bands is not None or F._scan_perm_id:
+        raise AssertionError("refactor_numeric left the chain path on")
+    e_num = solve_checked(A3, "refactor_numeric", 1, chain=False)
+    if launches != {"bidiag_ldiv": 2, "wave_apply": 0, "perm_gather": 0}:
+        raise AssertionError(f"config 1's two ldiv calls launched "
+                             f"{launches}")
+    print(f"phase 11 config 1: n={A.shape[0]} nnz(L+U)={F64.L.nnz + F64.U.nnz}"
+          f" K={F64.plan.lplan.K} T={F64.plan.lplan.T}/{F64.plan.uplan.T} "
+          f"levels={F64.plan.lplan.num_levels}/{F64.plan.uplan.num_levels}, "
+          f"built in {build_s:.2f} s; bands + identity perms detected; "
+          f"backward error R=1 {e[1]:.3e}, R=16 {e[16]:.3e} (bar 1e-3), one "
+          f"bidiag_ldiv and no wave per ldiv; float64 chain rel err vs "
+          f"spsolve {rel64:.3e} (bar 1e-10); host refactor -> bands "
+          f"re-detected, backward error {e_ref:.3e}; refactor_numeric -> "
+          f"bands cleared, waves serve, backward error {e_num:.3e}; "
+          f"launches {launches}")
+    return {"bidiag_ldiv": launches["bidiag_ldiv"]}
+
+
+def _rel_err(x, ref) -> float:
+    x = np.asarray(x.cpu().numpy() if hasattr(x, "cpu") else x, np.float64)
+    return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
+
+
+def phase_f64_tier():
+    import scipy.sparse.linalg as spla
+    import torch
+
+    rng = np.random.default_rng(12)
+    R = HEADLINE["R"]
+    A, F = _headline_solver("float32")
+    b = rng.random((A.shape[0], R))
+    xs = spla.spsolve(A.tocsc(), b)
+    f32 = {s: _rel_err(F.make_f64_ldiv(refine_steps=s)(b), xs)
+           for s in (1, 2)}
+    f32_steps = min((s for s, r in f32.items() if r < 1e-12), default=None)
+    if f32_steps is None:
+        raise AssertionError(f"f32 make_f64_ldiv misses 1e-12 in 2 sweeps: "
+                             f"{f32}")
+    # the bfloat16 stream: only the bf16 waves run
+    read = _reset_launches("wave_apply_bf16", "wave_apply", "perm_gather")
+    _, Fb = _headline_solver("float32", stream_dtype="bfloat16")
+    x = Fb.ldiv(b.astype(np.float32))
+    direct = _rel_err(x, xs)
+    bf = {s: _rel_err(Fb.make_f64_ldiv(refine_steps=s)(b), xs)
+          for s in BF16_SWEEPS}
+    torch.cuda.synchronize()
+    launches = read()
+    if launches["wave_apply_bf16"] == 0 or launches["wave_apply"] != 0:
+        raise AssertionError(f"bf16 stream launches {launches}")
+    if not 1e-6 < direct < 3e-2:
+        raise AssertionError(f"bf16 direct rel err {direct:.3e} outside "
+                             f"(1e-6, 3e-2)")
+    bf_steps = min((s for s, r in bf.items() if r < 1e-12), default=None)
+    if bf_steps is None or not bf[2] < direct:
+        raise AssertionError(f"bf16 stream + f64 sweeps: {bf} (direct "
+                             f"{direct:.3e}) never meets 1e-12")
+    if Fb.ldata.tiles_t.dtype != torch.float32:
+        raise AssertionError("the bank was quantized")
+    # after a device refactorization: refine against the new matrix
+    old = F.make_f64_ldiv()
+    # values scaled by 1 + 0.2 U(0, 1): the case where the JAX tier
+    # refines against the old matrix
+    A3 = A.copy()
+    A3.data = A3.data * (1.0 + 0.2 * rng.random(A3.nnz))
+    F.refactor_numeric(A3)
+    try:
+        old(b)
+    except RuntimeError as exc:
+        if "stale make_f64_ldiv" not in str(exc):
+            raise
+    else:
+        raise AssertionError("a stale make_f64_ldiv callable ran")
+    x3 = spla.spsolve(A3.tocsc(), b)
+    new = {s: _rel_err(F.make_f64_ldiv(refine_steps=s)(b), x3)
+           for s in (2, 3)}
+    new_steps = min((s for s, r in new.items() if r < 1e-12), default=None)
+    if new_steps is None:
+        raise AssertionError(f"make_f64_ldiv after refactor_numeric rel err "
+                             f"{new} against the new matrix")
+    print(f"phase 12 f64 tier (headline, R={R}): float32 stream rel err vs "
+          f"spsolve 1 sweep {f32[1]:.3e}, 2 sweeps {f32[2]:.3e} (bar 1e-12, "
+          f"met in {f32_steps}); bfloat16 stream direct {direct:.3e} (in "
+          f"(1e-6, 3e-2)), "
+          + ", ".join(f"{k} sweeps {v:.3e}" for k, v in bf.items())
+          + f" (1e-12 met in {bf_steps}); after refactor_numeric: stale "
+          f"callable refused, fresh one vs the new matrix 2 sweeps "
+          f"{new[2]:.3e}, 3 sweeps {new[3]:.3e} (1e-12 met in {new_steps}); "
+          f"launches {launches}")
+    return ({"wave_apply_bf16": launches["wave_apply_bf16"]},
+            f32_steps, bf_steps)
+
+
+def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
+    import torch
+
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import (
+        bidiag_ldiv, bidiag_ldiv_plain,
+    )
+    from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather
+    from tpu_sparse_lu_torch.solve import blocked_tri_solve
+
+    rng = np.random.default_rng(13)
+    ms = {}
+    _, F1 = _config1_solver()
+    for R in (1, 16):
+        b = torch.as_tensor(rng.random((F1.n, R)), dtype=torch.float32,
+                            device="cuda")
+        ms[f"c1_chain_R{R}"] = _median_ms(lambda _: F1._chain_solve(b))
+        ms[f"c1_plain_R{R}"] = _median_ms(
+            lambda _: F1._chain_solve(b, plain=True), reps=20)
+        ms[f"c1_waves_R{R}"] = _median_ms(lambda _: F1._direct_solve(b),
+                                          reps=10, warmup=2)
+    read = _reset_launches("perm_gather", "wave_apply")
+    F1._direct_solve(b)
+    waves_launches = sum(read().values())
+    ms["bidiag_ldiv"], ms["bidiag_ldiv_plain"] = (ms["c1_chain_R1"],
+                                                  ms["c1_plain_R1"])
+    n = CHAIN_NS[-1]
+    lower, upper = _random_planes(rng, n, torch.float32)
+    for R in (1, 16):
+        b = torch.as_tensor(rng.random((n, R)), dtype=torch.float32,
+                            device="cuda")
+        ms[f"big_R{R}"] = _median_ms(
+            lambda _: bidiag_ldiv(b, lower=lower, upper=upper), reps=10,
+            warmup=2)
+        ms[f"big_plain_R{R}"] = _median_ms(
+            lambda _: bidiag_ldiv_plain(b, lower=lower, upper=upper), reps=5,
+            warmup=1)
+    # the headline: bfloat16 stream against float32
+    R = HEADLINE["R"]
+    A, F = _headline_solver("float32")
+    _, Fb = _headline_solver("float32", stream_dtype="bfloat16")
+    b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=torch.float32,
+                        device="cuda")
+    ms["ldiv_f32"] = _median_ms(lambda _: F._direct_solve(b))
+    ms["ldiv_bf16"] = _median_ms(lambda _: Fb._direct_solve(b))
+    shape = (Fb.plan.lplan.K + 1, Fb.plan.cs, R)
+    x0 = perm_gather(b, Fb._pidx, Fb._rs).view(shape)
+    for name, plain in (("wave_apply_bf16", False),
+                        ("wave_apply_bf16_plain", True)):
+        ms[name] = _median_ms(
+            lambda x: blocked_tri_solve(
+                Fb.udata, blocked_tri_solve(Fb.ldata, x, plain=plain,
+                                            stream=True),
+                plain=plain, stream=True),
+            setup=x0.clone)
+    b64 = b.double()
+    sf = F.make_f64_ldiv(refine_steps=f32_steps)
+    sb = Fb.make_f64_ldiv(refine_steps=bf_steps)
+    ms["f64_f32"] = _median_ms(lambda _: sf(b64), reps=20)
+    ms["f64_bf16"] = _median_ms(lambda _: sb(b64), reps=20)
+    nbytes = {
+        "f32": sum(d.tiles_t.numel() * 4 for d in (F.ldata, F.udata)),
+        "bf16": sum(d.tiles_bf16.numel() * 2 for d in (Fb.ldata, Fb.udata)),
+    }
+    print(f"phase 13 chain + bf16 timing on {smi}: config 1 ldiv R=1 chain "
+          f"kernel {ms['c1_chain_R1']:.4f} ms, plain scan "
+          f"{ms['c1_plain_R1']:.4f} ms, tile waves {ms['c1_waves_R1']:.4f} ms"
+          f" ({waves_launches} launches); R=16 {ms['c1_chain_R16']:.4f} / "
+          f"{ms['c1_plain_R16']:.4f} / {ms['c1_waves_R16']:.4f} ms; "
+          f"bidiag_ldiv n={n} R=1 {ms['big_R1']:.4f} ms (plain "
+          f"{ms['big_plain_R1']:.4f}), R=16 {ms['big_R16']:.4f} ms (plain "
+          f"{ms['big_plain_R16']:.4f}); headline ldiv R={R} f32 stream "
+          f"{ms['ldiv_f32']:.4f} ms ({nbytes['f32'] / 1e6:.1f} MB of tiles),"
+          f" bf16 stream {ms['ldiv_bf16']:.4f} ms "
+          f"({nbytes['bf16'] / 1e6:.1f} MB); bf16 L+U waves "
+          f"{ms['wave_apply_bf16']:.4f} / plain "
+          f"{ms['wave_apply_bf16_plain']:.4f} ms; make_f64_ldiv R={R} f32 "
+          f"stream {f32_steps} sweeps {ms['f64_f32']:.4f} ms, bf16 stream "
+          f"{bf_steps} sweeps {ms['f64_bf16']:.4f} ms")
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -771,6 +1173,12 @@ def main() -> int:
                      if k not in launches})
     A2c, F2c, step = phase_config2_step()
     ms.update(phase_refactor_timing(A2c, F2c, step, smi))
+    del A2c, F2c, step
+    err.update(phase_chain_and_bf16_kernels_vs_plain())
+    launches.update(phase_config1())
+    bf_launches, f32_steps, bf_steps = phase_f64_tier()
+    launches.update(bf_launches)
+    ms.update(phase_chain_bf16_timing(smi, f32_steps, bf_steps))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[k], "max_abs_err": err[k], "ms": ms[k],

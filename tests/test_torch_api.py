@@ -203,7 +203,6 @@ def test_device_is_required():
 
 
 @pytest.mark.parametrize("call, item", [
-    (lambda F: F.make_f64_ldiv(), "item 9"),
     (lambda F: F.save("unused.npz"), "item 11"),
     (lambda F: tlu.ParallelSparseLU.from_saved(None, "unused.npz"),
      "item 11"),
@@ -212,6 +211,17 @@ def test_not_ported_entry_points_name_roadmap_item(call, item):
     F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
         call(F)
+
+
+def test_make_f64_ldiv_is_ported(rng):
+    A = poisson_2d(6, 6)
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=8, dtype="float32"), device="cpu")
+    b = rng.random(A.shape[0])
+    x = F.make_f64_ldiv()(b)
+    assert x.dtype == torch.float64 and x.shape == b.shape
+    assert_isapprox(x.numpy(), spla.spsolve(A.tocsc(), b), rtol=1e-12,
+                    atol=1e-12)
 
 
 def test_from_jax_arrays_checks_matrix(rng, tmp_path):

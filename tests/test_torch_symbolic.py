@@ -89,11 +89,16 @@ def test_default_chunk_size(n, device_type, cs):
 @pytest.mark.parametrize("field, value, item", [
     ("tri_mode", "trsm", "item 8"),
     ("tri_mode", "inv_refine", "item 8"),
-    ("stream_dtype", "bfloat16", "item 10"),
 ])
 def test_config_modes_not_ported_name_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
         SolverConfig(**{field: value})
+
+
+def test_config_accepts_bf16_stream():
+    cfg = SolverConfig(stream_dtype="bfloat16", dtype="float32")
+    assert cfg.stream_dtype == "bfloat16"
+    assert SolverConfig().stream_dtype == "float32"
 
 
 @pytest.mark.parametrize("kw", [

@@ -3,7 +3,7 @@
 Same lifecycle as the JAX package — factor once on the host, solve many
 times on a torch device, refactor in place — with the solve running
 through hand-written Hopper kernels on a CUDA device
-(``csrc/ldiv.cu``, built with ``nvcc`` at first use) and through their
+(``csrc/*.cu``, built with ``nvcc`` at first use) and through their
 plain PyTorch versions on the CPU. Imports no JAX.
 
 * :class:`ParallelSparseLU` — factor once, solve many, refactor in place.

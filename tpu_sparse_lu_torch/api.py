@@ -12,13 +12,17 @@ refactor in place when values change but sparsity doesn't → solve again.
   * ``F.refactor_numeric(A)``                  — same-pattern numeric
                                                  refactorization on the
                                                  device (static pivots)
+  * ``F.make_f64_ldiv()``                      — float64-accurate solves
+                                                 from a float32
+                                                 factorization
 
 Construction (SuperLU, or with ``factorize="device"`` no numeric host
 factorization at all; the nd embedding; planning) runs on the host; the
 packed tiles, their inverses and the solves live on ``device``. A solve on
-a CUDA device runs the hand-written kernels of ``ops/fused_ldiv.py``, a
-device refactorization those of ``ops/span_gather.py``, ``ops/lu_tile.py``
-and ``ops/elimination.py``.
+a CUDA device runs the hand-written kernels of ``ops/fused_ldiv.py`` —
+or, for bidiagonal factors (1-D chains), the one of ``ops/bidiag_ldiv.py``
+— and a device refactorization those of ``ops/span_gather.py``,
+``ops/lu_tile.py`` and ``ops/elimination.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .ops.bidiag_ldiv import bidiag_ldiv, bidiag_ldiv_plain
 from .ops.fused_ldiv import perm_gather, perm_gather_plain
+from .ops.scan_solve import bidiag_bands, chain_planes
 from .pack import pack_factor
 from .solve import (
     TriKernelData,
@@ -160,6 +166,11 @@ class ParallelSparseLU:
         cs = max(1, min(cs, A.shape[0]))  # reference clamp, src:72
         self._n_orig = A.shape[0]
         self.dtype = _resolve_dtype(self.config.dtype, A.dtype)
+        if (self.config.stream_dtype == "bfloat16"
+                and self.dtype != torch.float32):
+            raise ValueError(
+                "stream_dtype='bfloat16' streams the tiles of a float32 "
+                f"factorization; this solver's dtype is {self.dtype}")
 
         # nested-dissection embedding: factor an extended matrix whose
         # chunks align with the dissection stages
@@ -349,7 +360,8 @@ class ParallelSparseLU:
     def _set_matrix(self, A: sp.csc_matrix) -> None:
         """Keep A on the device as a sparse CSR tensor, for the residual of
         iterative refinement (``matvec``), with the CSC → CSR permutation
-        of its values, so new values on the device need no host trip."""
+        of its values, so new values on the device need no host trip, and
+        a float64 copy of its CSC values (``make_f64_ldiv``'s residual)."""
         nnz = A.indices.shape[0]
         # CSC positions carried through the conversion (shifted by one so
         # that no position is an explicit zero)
@@ -362,8 +374,8 @@ class ParallelSparseLU:
         )
         self._csc_to_csr = torch.as_tensor(pos.data - 1, dtype=torch.int64,
                                            device=dev)
-        self._A_dev = self._csr_matrix(
-            torch.as_tensor(A.data, dtype=self.dtype, device=dev))
+        self._set_matrix_values(
+            torch.as_tensor(A.data, dtype=torch.float64, device=dev))
 
     def _csr_matrix(self, a_data: torch.Tensor) -> torch.Tensor:
         """The sparse CSR tensor of A from its CSC values on the device."""
@@ -376,8 +388,10 @@ class ParallelSparseLU:
             )
 
     def _set_matrix_values(self, a_data: torch.Tensor) -> None:
-        """New values of A (CSC order, on the device), same pattern."""
-        self._A_dev = self._csr_matrix(a_data)
+        """New values of A (CSC order, on the device, of any float dtype:
+        float64 keeps the f64 copy exact), same pattern."""
+        self._a64 = a_data.to(torch.float64)
+        self._A_dev = self._csr_matrix(a_data.to(self.dtype))
 
     def matvec(self, x) -> torch.Tensor:
         """``A @ x`` on the device with the current matrix values."""
@@ -501,13 +515,19 @@ class ParallelSparseLU:
     def _prepare_device(self) -> None:
         """Pack the factor nonzeros into tiles, invert the diagonal tiles
         and build the wave schedules and permutation vectors (the
-        reference's allocate_chunks + fill_chunks!, src:151-243)."""
+        reference's allocate_chunks + fill_chunks!, src:151-243), then
+        detect a bidiagonal chain (:meth:`_prepare_scan_path`)."""
         plan, dev = self.plan, self.device
+        # numeric-state generation: a make_f64_ldiv callable records it and
+        # refuses to run once it moved
+        self._generation = getattr(self, "_generation", 0) + 1
+        bf16 = self.config.stream_dtype == "bfloat16"
 
         def tri(tplan, M):
             nz = torch.as_tensor(np.asarray(M.data), dtype=self.dtype,
                                  device=dev)
-            return prepare_tri_kernel(tplan, *pack_factor(tplan, nz))
+            return prepare_tri_kernel(tplan, *pack_factor(tplan, nz),
+                                      bf16_stream=bf16)
 
         self.ldata: TriKernelData = tri(plan.lplan, self._factors.L)
         self.udata: TriKernelData = tri(plan.uplan, self._factors.U)
@@ -534,6 +554,51 @@ class ParallelSparseLU:
         # device refactorization
         self._ext_pos_dev = None if self._ext is None else torch.as_tensor(
             self._ext["pos"], dtype=torch.int64, device=dev)
+        self._prepare_scan_path()
+
+    def _prepare_scan_path(self) -> None:
+        """Detect bidiagonal factors (1-D chain matrices) and stage the
+        chain solve (``ops/bidiag_ldiv.py``): a chain's chunk DAG has no
+        width for the tile waves, one level per chunk, while the chain's
+        substitution is one prefix scan.
+
+        Sets ``_scan_bands`` (``ld, lo, ud, uo`` on the device; ``None``
+        when a factor is not bidiagonal), ``_scan_perm_id`` (no nd
+        embedding and ``p``, ``q`` the identity: ``ldiv`` may run the
+        chain solve) and ``_scan_planes`` (the affine coefficient planes of
+        ``ops/scan_solve.chain_planes``). Runs on every re-pack, so each
+        factorization is detected anew.
+        """
+        self._scan_bands = self._scan_planes = None
+        self._scan_perm_id = False
+        lb = bidiag_bands(self._factors.L, lower=True)
+        if lb is None:
+            return
+        ub = bidiag_bands(self._factors.U, lower=False)
+        if ub is None:
+            return
+        n = self.plan.n
+        self._scan_perm_id = (
+            self._ext is None
+            and np.array_equal(self.plan.p, np.arange(n))
+            and np.array_equal(self.plan.q, np.arange(n))
+        )
+        np_dt = np.float32 if self.dtype == torch.float32 else np.float64
+
+        def dev(v):
+            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+        self._scan_bands = {"ld": dev(lb["diag"]), "lo": dev(lb["off"]),
+                            "ud": dev(ub["diag"]), "uo": dev(ub["off"])}
+        rs = self.plan.Rs if self._scan_perm_id else None
+        self._scan_planes = {k: dev(v) for k, v in
+                             chain_planes(lb, ub, rs, np_dt).items()}
+
+    @property
+    def _stream_dt(self) -> torch.dtype:
+        """dtype of the L/U tile stream ``ldiv`` reads
+        (``SolverConfig.stream_dtype``)."""
+        return getattr(torch, self.config.stream_dtype)
 
     # -- solves -------------------------------------------------------------
     def _as_rhs(self, b, n=None):
@@ -567,20 +632,48 @@ class ParallelSparseLU:
         R = b.shape[1]
         xw = gather(b, self._pidx, rs).view(
             self.plan.lplan.K + 1, self.plan.cs, R)
-        blocked_tri_solve(ldata, xw, plain=plain)
-        blocked_tri_solve(udata, xw, plain=plain)
+        blocked_tri_solve(ldata, xw, plain=plain, stream=True)
+        blocked_tri_solve(udata, xw, plain=plain, stream=True)
         return gather(xw.view(-1, R), self._qidx)
+
+    def _chain_solve(self, b: torch.Tensor, *,
+                     plain: bool = False) -> torch.Tensor:
+        """``x = A⁻¹ b`` on a chain (``_scan_perm_id``): ``Rs`` folded into
+        the forward sweep, then the backward sweep, one kernel launch.
+        ``plain=True`` runs the plain PyTorch scan."""
+        sp_ = self._scan_planes
+        solve = bidiag_ldiv_plain if plain else bidiag_ldiv
+        return solve(b, lower=(sp_["aL"], sp_["sL"]),
+                     upper=(sp_["aU"], sp_["sU"]))
+
+    def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
+        """One direct solve of ``ldiv``: the chain solve when the factors
+        are a chain under identity permutations, else the tile waves."""
+        if self._scan_perm_id:
+            return self._chain_solve(b)
+        return self._direct_solve(b)
 
     def lsolve(self, b) -> torch.Tensor:
         """Solve ``L y = b`` (reference ``lsolve!``, src:349-367).
 
         Under ordering="nd" the factors live on the extended matrix:
         ``b`` has length ``n_factor``."""
+        if self._scan_bands is not None:
+            sp_ = self._scan_planes
+            return self._chain_tri_solve(b, lower=(sp_["aL"], sp_["iL"]))
         return self._tri_solve(self.ldata, self.plan.lplan, b)
 
     def rsolve(self, b) -> torch.Tensor:
         """Solve ``U y = b`` (reference ``rsolve!``, src:374-392)."""
+        if self._scan_bands is not None:
+            sp_ = self._scan_planes
+            return self._chain_tri_solve(b, upper=(sp_["aU"], sp_["sU"]))
         return self._tri_solve(self.udata, self.plan.uplan, b)
+
+    def _chain_tri_solve(self, b, **planes):
+        b, squeeze = self._as_rhs(b, self.n_factor)
+        y = bidiag_ldiv(b, **planes)
+        return y[:, 0] if squeeze else y
 
     def _tri_solve(self, data: TriKernelData, tplan: TriPlan, b):
         nf = self.n_factor
@@ -595,14 +688,16 @@ class ParallelSparseLU:
         ``b`` may be ``(n,)`` or ``(n, R)``, a tensor or an array; the
         result is a tensor on the solver's device. ``refine_steps`` —
         iterative-refinement sweeps ``x += solve(b - A x)`` after the direct
-        solve, with the residual in the solver's dtype.
+        solve, with the residual in the solver's dtype. Bidiagonal factors
+        under identity permutations (1-D chains, natural ordering) solve
+        through the chain kernel, anything else through the tile waves.
         """
         if self.m != self.n:
             raise ValueError(f"`F` is not square: m={self.m}, n={self.n}")
         b, squeeze = self._as_rhs(b)
-        x = self._direct_solve(b)
+        x = self._solve_once(b)
         for _ in range(refine_steps):
-            x = x + self._direct_solve(b - self.matvec(x))
+            x = x + self._solve_once(b - self.matvec(x))
         return x[:, 0] if squeeze else x
 
     solve = ldiv
@@ -829,11 +924,59 @@ class ParallelSparseLU:
 
         return step
 
-    # -- not ported yet -----------------------------------------------------
-    def make_f64_ldiv(self, **kwargs):
-        _not_ported("make_f64_ldiv",
-                    "ROADMAP.md queue A item 9 (f64 tier)")
+    def make_f64_ldiv(self, *, refine_steps: int = 2):
+        """float64-accurate solves from a float32 factorization: mixed
+        precision iterative refinement,
 
+            x_0 = solve_f32(b);   x_{k+1} = x_k + solve_f32(b - A x_k),
+
+        with the residual ``b - A x`` and ``x`` in float64 (a float64
+        sparse CSR product with the CURRENT values of A) and every direct
+        solve the float32 one ``ldiv`` runs (the chain kernel or the tile
+        waves, with the bfloat16 tile stream where configured). Each sweep
+        contracts the error by ~kappa(A)·eps of the stream, so a few sweeps
+        reach the reference's 1e-12 bar (test/runtests.jl:25).
+
+        Returns ``solve(b) -> x``: ``b`` ``(n,)`` or ``(n, R)``, ``x`` a
+        float64 tensor on the solver's device. The callable belongs to the
+        numeric state it was made on: after ``refactor``,
+        ``refactor(None)`` or ``refactor_numeric`` it raises
+        ``RuntimeError``; make a new one. Raises ``ValueError`` on a
+        solver that is not float32.
+        """
+        if self.dtype != torch.float32:
+            raise ValueError(
+                "make_f64_ldiv refines an f32 factorization; this solver "
+                f"was built with dtype={self.dtype}")
+        A64 = self._csr_matrix(self._a64)
+        steps = int(refine_steps)
+        n = self.n
+        gen = self._generation
+
+        def solve(b):
+            if self._generation != gen:
+                raise RuntimeError(
+                    "stale make_f64_ldiv solve: a refactorization replaced "
+                    "the numeric state this callable was built on; call "
+                    "make_f64_ldiv() again (generation "
+                    f"{gen} -> {self._generation})")
+            b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
+            if b.dim() not in (1, 2) or b.shape[0] != n:
+                raise ValueError(f"`b` does not have same size as F: "
+                                 f"{tuple(b.shape)} vs n={n}")
+            squeeze = b.dim() == 1
+            if squeeze:
+                b = b[:, None]
+            b = b.contiguous()
+            x = self._solve_once(b.float()).double()
+            for _ in range(steps):
+                r = b - A64 @ x
+                x = x + self._solve_once(r.float()).double()
+            return x[:, 0] if squeeze else x
+
+        return solve
+
+    # -- not ported yet -----------------------------------------------------
     def save(self, path, **kwargs):
         _not_ported("save", _PERSISTENCE)
 
@@ -845,7 +988,9 @@ class ParallelSparseLU:
         """Release the device buffers, the refactorization's included (the
         reference's exported ``cleanup_ParallelSparseLU!``, src:31)."""
         self.ldata = self.udata = None
-        self._A_dev = self._pidx = self._qidx = self._rs = None
+        self._scan_bands = self._scan_planes = None
+        self._scan_perm_id = False
+        self._A_dev = self._a64 = self._pidx = self._qidx = self._rs = None
         self._csr_pattern = self._csc_to_csr = self._ext_pos_dev = None
         self._init_refactor_state()
 

@@ -36,6 +36,13 @@
 // the partials, whichever is larger) plus the strip, up to 145 KB for
 // float64 at cs = 128.
 //
+// bfloat16 tiles (SolverConfig.stream_dtype="bfloat16"): the tile bank is
+// read as bf16 and the carrier stays float32, as the TPU kernel widens its
+// bf16 L/U pages after the DMA (pallas_ldiv.py:663). The tile is staged in
+// shared memory at half the width and each element widens to float32 as it
+// is read from there, so all arithmetic is the same float32 FMAs; only the
+// bytes per tile halve.
+//
 // What bounds it on the card: one solve reads every L and U tile once
 // (about 33 MB at the 2D Poisson 100x100, cs = 128, nd headline), so it is
 // bound by bytes plus the launch latency of ~30 dependent waves. This
@@ -44,6 +51,7 @@
 // filling more of the 132 SMs than the 23 chunks of the widest diagonal
 // wave do (splitting a destination's k range over several blocks).
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,12 +63,21 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerLane = 4;
 constexpr int kMaxCs = 32 * kRowsPerLane;
 
-// elements of the shared tile region: the tile, or the warps' partials
-template <int RB>
+// bytes of the shared tile region: the tile (of the tile type TT), or the
+// warps' partials (of the carrier type T), rounded up to 16 bytes
+template <typename T, typename TT, int RB>
 __host__ __device__ inline int tile_region(int cs) {
-  const int partials = kWarps * RB * (cs + 1);
-  return cs * cs > partials ? cs * cs : partials;
+  const int partials = kWarps * RB * (cs + 1) * (int)sizeof(T);
+  const int tile = cs * cs * (int)sizeof(TT);
+  return ((tile > partials ? tile : partials) + 15) / 16 * 16;
 }
+
+// a staged tile element in the carrier's type
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T widen(T v) { return v; }
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -81,9 +98,9 @@ perm_gather_kernel(T* __restrict__ y, const T* __restrict__ v,
   y[q] = val;
 }
 
-template <typename T, int RB>
+template <typename T, typename TT, int RB>
 __global__ void __launch_bounds__(kThreads)
-wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
+wave_apply_kernel(T* __restrict__ x, const TT* __restrict__ tiles_t,
                   const int32_t* __restrict__ dst,
                   const int32_t* __restrict__ ptr,
                   const int32_t* __restrict__ ent_tile,
@@ -94,8 +111,10 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
   // warps' partial sums, (kWarps, RB, cs + 1): lanes (rows) of a warp hit
   // consecutive banks, and the padded column keeps the columns of the
   // final sum apart too
-  T* ts = reinterpret_cast<T*>(smem_raw);
-  T* xs = ts + tile_region<RB>(cs);        // (cs, RB) staged x[src] strip
+  TT* ts = reinterpret_cast<TT*>(smem_raw);
+  T* ps = reinterpret_cast<T*>(smem_raw);  // the partials, in ts's place
+  // (cs, RB) staged x[src] strip
+  T* xs = reinterpret_cast<T*>(smem_raw + tile_region<T, TT, RB>(cs));
   const int ldp = cs + 1;
 
   const int lane = threadIdx.x & 31;
@@ -103,7 +122,7 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
   const int j0 = blockIdx.y * RB;
   const int64_t blk = (int64_t)cs * R;  // elements per carrier block
   const int tile_elems = cs * cs;
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int kVec = 16 / sizeof(TT);  // tile elements per 16-byte copy
 
   // each thread owns the strip entries q = threadIdx.x + u * kThreads;
   // an accumulating wave loads their old values before anything else, so
@@ -128,7 +147,7 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
 
   const int e_end = ptr[blockIdx.x + 1];
   for (int e = ptr[blockIdx.x]; e < e_end; ++e) {
-    const T* tile = tiles_t + (int64_t)ent_tile[e] * tile_elems;
+    const TT* tile = tiles_t + (int64_t)ent_tile[e] * tile_elems;
     const T* xsrc = x + (int64_t)ent_src[e] * blk;
     __syncthreads();  // the previous entry is done with ts and xs
     // the whole tile in flight at once: asynchronous copies into shared
@@ -137,9 +156,12 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
         reinterpret_cast<uintptr_t>(tile) % 16 == 0) {
       for (int q = threadIdx.x; q < tile_elems / kVec; q += kThreads)
         __pipeline_memcpy_async(ts + q * kVec, tile + q * kVec, 16);
-    } else {
+    } else if constexpr (sizeof(TT) >= 4) {
       for (int q = threadIdx.x; q < tile_elems; q += kThreads)
-        __pipeline_memcpy_async(ts + q, tile + q, sizeof(T));
+        __pipeline_memcpy_async(ts + q, tile + q, sizeof(TT));
+    } else {  // no asynchronous copy of fewer than 4 bytes
+      for (int q = threadIdx.x; q < tile_elems; q += kThreads)
+        ts[q] = tile[q];
     }
     for (int q = threadIdx.x; q < cs * RB; q += kThreads) {
       const int k = q / RB;
@@ -154,12 +176,12 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
     __pipeline_wait_prior(0);
     __syncthreads();
     for (int k = warp; k < cs; k += kWarps) {
-      const T* trow = ts + k * cs;
+      const TT* trow = ts + k * cs;
       T t[kRowsPerLane];
 #pragma unroll
       for (int r = 0; r < kRowsPerLane; ++r) {
         const int i = lane + 32 * r;
-        t[r] = (i < cs) ? trow[i] : T(0);
+        t[r] = (i < cs) ? widen(trow[i]) : T(0);
       }
       const T* xk = xs + k * RB;
 #pragma unroll
@@ -181,7 +203,7 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
     const int i = lane + 32 * r;
     if (i < cs) {
 #pragma unroll
-      for (int j = 0; j < RB; ++j) ts[(warp * RB + j) * ldp + i] = acc[r][j];
+      for (int j = 0; j < RB; ++j) ps[(warp * RB + j) * ldp + i] = acc[r][j];
     }
   }
   __syncthreads();
@@ -192,9 +214,9 @@ wave_apply_kernel(T* __restrict__ x, const T* __restrict__ tiles_t,
     const int i = q / RB;
     const int j = q - i * RB;
     if (i < cs && j0 + j < R) {
-      T sum = ts[j * ldp + i];
+      T sum = ps[j * ldp + i];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) sum += ts[(w * RB + j) * ldp + i];
+      for (int w = 1; w < kWarps; ++w) sum += ps[(w * RB + j) * ldp + i];
       xd[(int64_t)i * R + j0 + j] = old[u] + sum;
     }
   }
@@ -212,27 +234,28 @@ int launch_perm_gather(T* y, const T* v, const int32_t* idx, const T* scale,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int RB>
-int launch_wave_rb(T* x, const T* tiles_t, const int32_t* dst,
+template <typename T, typename TT, int RB>
+int launch_wave_rb(T* x, const TT* tiles_t, const int32_t* dst,
                    const int32_t* ptr, const int32_t* ent_tile,
                    const int32_t* ent_src, int n_dst, int cs, int R,
                    int accumulate, cudaStream_t stream) {
   // above 48 KB only after opting in, once per instantiation, for the
   // largest tile (145 KB for float64 at cs = 128, RB = 16)
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      wave_apply_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)((tile_region<RB>(kMaxCs) + kMaxCs * RB) * sizeof(T)));
+      wave_apply_kernel<T, TT, RB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(tile_region<T, TT, RB>(kMaxCs) + kMaxCs * RB * sizeof(T)));
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid(n_dst, (R + RB - 1) / RB);
-  const size_t smem = ((size_t)tile_region<RB>(cs) + (size_t)cs * RB) *
-                      sizeof(T);
-  wave_apply_kernel<T, RB><<<grid, kThreads, smem, stream>>>(
+  const size_t smem = (size_t)tile_region<T, TT, RB>(cs) +
+                      (size_t)cs * RB * sizeof(T);
+  wave_apply_kernel<T, TT, RB><<<grid, kThreads, smem, stream>>>(
       x, tiles_t, dst, ptr, ent_tile, ent_src, cs, R, accumulate);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wave(T* x, const T* tiles_t, const int32_t* dst,
+template <typename T, typename TT>
+int launch_wave(T* x, const TT* tiles_t, const int32_t* dst,
                 const int32_t* ptr, const int32_t* ent_tile,
                 const int32_t* ent_src, int n_dst, int cs, int R,
                 int accumulate, cudaStream_t stream) {
@@ -240,13 +263,13 @@ int launch_wave(T* x, const T* tiles_t, const int32_t* dst,
   if (n_dst == 0) return 0;
   // column strip: as wide as R up to 16, so a single RHS wastes no lanes
   if (R == 1)
-    return launch_wave_rb<T, 1>(x, tiles_t, dst, ptr, ent_tile, ent_src,
-                                n_dst, cs, R, accumulate, stream);
+    return launch_wave_rb<T, TT, 1>(x, tiles_t, dst, ptr, ent_tile, ent_src,
+                                    n_dst, cs, R, accumulate, stream);
   if (R <= 4)
-    return launch_wave_rb<T, 4>(x, tiles_t, dst, ptr, ent_tile, ent_src,
-                                n_dst, cs, R, accumulate, stream);
-  return launch_wave_rb<T, 16>(x, tiles_t, dst, ptr, ent_tile, ent_src,
-                               n_dst, cs, R, accumulate, stream);
+    return launch_wave_rb<T, TT, 4>(x, tiles_t, dst, ptr, ent_tile, ent_src,
+                                    n_dst, cs, R, accumulate, stream);
+  return launch_wave_rb<T, TT, 16>(x, tiles_t, dst, ptr, ent_tile, ent_src,
+                                   n_dst, cs, R, accumulate, stream);
 }
 
 }  // namespace
@@ -277,16 +300,27 @@ int ldiv_wave_apply_f32(float* x, const float* tiles_t, const int32_t* dst,
                         const int32_t* ptr, const int32_t* ent_tile,
                         const int32_t* ent_src, int n_dst, int cs, int R,
                         int accumulate, void* stream) {
-  return launch_wave<float>(x, tiles_t, dst, ptr, ent_tile, ent_src, n_dst,
-                            cs, R, accumulate, (cudaStream_t)stream);
+  return launch_wave<float, float>(x, tiles_t, dst, ptr, ent_tile, ent_src,
+                                   n_dst, cs, R, accumulate,
+                                   (cudaStream_t)stream);
 }
 
 int ldiv_wave_apply_f64(double* x, const double* tiles_t, const int32_t* dst,
                         const int32_t* ptr, const int32_t* ent_tile,
                         const int32_t* ent_src, int n_dst, int cs, int R,
                         int accumulate, void* stream) {
-  return launch_wave<double>(x, tiles_t, dst, ptr, ent_tile, ent_src, n_dst,
-                             cs, R, accumulate, (cudaStream_t)stream);
+  return launch_wave<double, double>(x, tiles_t, dst, ptr, ent_tile, ent_src,
+                                     n_dst, cs, R, accumulate,
+                                     (cudaStream_t)stream);
+}
+
+int ldiv_wave_apply_bf16(float* x, const void* tiles_t, const int32_t* dst,
+                         const int32_t* ptr, const int32_t* ent_tile,
+                         const int32_t* ent_src, int n_dst, int cs, int R,
+                         int accumulate, void* stream) {
+  return launch_wave<float, __nv_bfloat16>(
+      x, static_cast<const __nv_bfloat16*>(tiles_t), dst, ptr, ent_tile,
+      ent_src, n_dst, cs, R, accumulate, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -113,6 +113,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f = getattr(lib, f"tile_mm_{dt}")
         f.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
         f.restype = I
+        f = getattr(lib, f"bidiag_ldiv_{dt}")
+        f.argtypes = [P, P, P, P, P, P, L, I, P]
+        f.restype = I
+    lib.ldiv_wave_apply_bf16.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+    lib.ldiv_wave_apply_bf16.restype = I
     lib.ldiv_error_string.argtypes = [I]
     lib.ldiv_error_string.restype = ctypes.c_char_p
     lib.ldiv_max_chunk.argtypes = []

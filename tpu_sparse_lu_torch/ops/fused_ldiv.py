@@ -13,12 +13,17 @@ hand-written CUDA kernels (``csrc/ldiv.cu``):
   ``x[dst] = acc·x[dst] + Σ tile·x[src]``. Each level of a factor is two
   waves, the diagonal wave (``acc=0``, ``src == dst``, tile = ``Dinv_k``)
   and the off-diagonal wave (``acc=1``, tiles stored negated) — the wave
-  boundaries ``_tri_ops`` emits on the TPU, without its padding.
+  boundaries ``_tri_ops`` emits on the TPU, without its padding;
+* :func:`wave_apply_bf16` — the same wave with a bfloat16 tile bank and a
+  float32 carrier (``SolverConfig.stream_dtype="bfloat16"``): each tile
+  widens to float32 as it is read, as the TPU kernel widens its bf16 L/U
+  stream, and the arithmetic stays float32.
 
 Each wrapper runs its kernel on a CUDA tensor and the plain PyTorch version
 beside it (``*_plain``) on a CPU tensor, and raises on anything else. The
 plain versions are the reference the kernels are held against.
-``perm_gather.LAUNCHES`` and ``wave_apply.LAUNCHES`` count kernel launches.
+``perm_gather.LAUNCHES``, ``wave_apply.LAUNCHES`` and
+``wave_apply_bf16.LAUNCHES`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ __all__ = [
     "perm_gather",
     "perm_gather_plain",
     "wave_apply",
+    "wave_apply_bf16",
     "wave_apply_plain",
 ]
 
@@ -192,8 +198,11 @@ perm_gather.LAUNCHES = 0
 def wave_apply_plain(x: torch.Tensor, tiles_t: torch.Tensor,
                      wave: Wave) -> torch.Tensor:
     """``x[dst] = acc·x[dst] + Σ tile·x[src]`` with a batched matmul and
-    ``index_add_``; ``tiles_t`` holds the tiles transposed."""
-    contrib = torch.bmm(tiles_t[wave.ent_tile].transpose(1, 2),
+    ``index_add_``; ``tiles_t`` holds the tiles transposed, of ``x``'s
+    dtype or bfloat16 (the tiles a wave reads widen exactly to ``x``'s
+    dtype: the plain version of both :func:`wave_apply` and
+    :func:`wave_apply_bf16`)."""
+    contrib = torch.bmm(tiles_t[wave.ent_tile].to(x.dtype).transpose(1, 2),
                         x[wave.ent_src])
     if wave.accumulate:
         out = x[wave.dst]
@@ -205,6 +214,28 @@ def wave_apply_plain(x: torch.Tensor, tiles_t: torch.Tensor,
     return x
 
 
+def _check_wave(x: torch.Tensor, tiles_t: torch.Tensor, wave: Wave) -> None:
+    """The operand checks of a wave launch on a CUDA tensor."""
+    _require(x.dim() == 3 and x.is_contiguous(),
+             "x must be a contiguous (blocks, cs, R) carrier")
+    cs = x.shape[1]
+    _require(tiles_t.dim() == 3 and tiles_t.shape[1:] == (cs, cs)
+             and tiles_t.is_contiguous(),
+             "tiles_t must be contiguous (n_tiles, cs, cs)")
+    _require(cs <= _lib().max_chunk, f"the CUDA ldiv kernel takes "
+             f"chunk_size <= {_lib().max_chunk}, got {cs}")
+
+
+def _launch_wave(name: str, x: torch.Tensor, tiles_t: torch.Tensor,
+                 wave: Wave) -> None:
+    fn = getattr(_lib(), name)
+    rc = fn(x.data_ptr(), tiles_t.data_ptr(), wave.dst.data_ptr(),
+            wave.ptr.data_ptr(), wave.ent_tile.data_ptr(),
+            wave.ent_src.data_ptr(), wave.dst.shape[0], x.shape[1],
+            x.shape[2], int(wave.accumulate), _stream(x))
+    _check(rc, name)
+
+
 def wave_apply(x: torch.Tensor, tiles_t: torch.Tensor,
                wave: Wave) -> torch.Tensor:
     """Apply one wave to the carrier ``x`` (blocks, cs, R) in place.
@@ -214,27 +245,36 @@ def wave_apply(x: torch.Tensor, tiles_t: torch.Tensor,
     """
     _require(wave.blocks <= x.shape[0] and wave.tiles <= tiles_t.shape[0],
              "wave indexes past the carrier or the tile bank")
+    _require(tiles_t.dtype == x.dtype, f"tiles of {tiles_t.dtype} for a "
+             f"{x.dtype} carrier (bfloat16 tiles: wave_apply_bf16)")
     if _device_kind(x, tiles_t, wave.dst) == "cpu":
         return wave_apply_plain(x, tiles_t, wave)
-    _require(x.dtype in _KERNEL_DTYPES and tiles_t.dtype == x.dtype,
-             f"unsupported dtypes {x.dtype}/{tiles_t.dtype}")
-    _require(x.dim() == 3 and x.is_contiguous(),
-             "x must be a contiguous (blocks, cs, R) carrier")
-    cs, R = x.shape[1], x.shape[2]
-    _require(tiles_t.dim() == 3 and tiles_t.shape[1:] == (cs, cs)
-             and tiles_t.is_contiguous(),
-             "tiles_t must be contiguous (n_tiles, cs, cs)")
-    lib = _lib()
-    _require(cs <= lib.max_chunk, f"the CUDA ldiv kernel takes chunk_size "
-             f"<= {lib.max_chunk}, got {cs}")
-    fn = getattr(lib, f"ldiv_wave_apply_{_KERNEL_DTYPES[x.dtype]}")
-    rc = fn(x.data_ptr(), tiles_t.data_ptr(), wave.dst.data_ptr(),
-            wave.ptr.data_ptr(), wave.ent_tile.data_ptr(),
-            wave.ent_src.data_ptr(), wave.dst.shape[0], cs, R,
-            int(wave.accumulate), _stream(x))
-    _check(rc, "wave_apply")
+    _require(x.dtype in _KERNEL_DTYPES, f"unsupported dtype {x.dtype}")
+    _check_wave(x, tiles_t, wave)
+    _launch_wave(f"ldiv_wave_apply_{_KERNEL_DTYPES[x.dtype]}", x, tiles_t,
+                 wave)
     wave_apply.LAUNCHES += 1
     return x
 
 
 wave_apply.LAUNCHES = 0
+
+
+def wave_apply_bf16(x: torch.Tensor, tiles_t: torch.Tensor,
+                    wave: Wave) -> torch.Tensor:
+    """:func:`wave_apply` with a bfloat16 tile bank and a float32 carrier
+    ``x``, in place; returns ``x``."""
+    _require(wave.blocks <= x.shape[0] and wave.tiles <= tiles_t.shape[0],
+             "wave indexes past the carrier or the tile bank")
+    _require(tiles_t.dtype == torch.bfloat16 and x.dtype == torch.float32,
+             f"wave_apply_bf16 takes bfloat16 tiles and a float32 carrier, "
+             f"got {tiles_t.dtype}/{x.dtype}")
+    if _device_kind(x, tiles_t, wave.dst) == "cpu":
+        return wave_apply_plain(x, tiles_t, wave)
+    _check_wave(x, tiles_t, wave)
+    _launch_wave("ldiv_wave_apply_bf16", x, tiles_t, wave)
+    wave_apply_bf16.LAUNCHES += 1
+    return x
+
+
+wave_apply_bf16.LAUNCHES = 0

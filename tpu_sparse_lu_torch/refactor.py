@@ -398,15 +398,22 @@ def refactor_pipeline(a_data: torch.Tensor, dev: RefactorDevice, *,
 def refactor_numeric_values(F, a_data: torch.Tensor, *,
                             plain: bool = False) -> None:
     """Refactorize from new nonzero values of A (a tensor on F's device,
-    original CSC order). Updates F's device solve state in place without
-    synchronising the device."""
+    original CSC order, float64 or F's dtype). Updates F's device solve
+    state in place without synchronising the device."""
     from .solve import tri_kernel_from_bank
 
-    out = refactor_pipeline(a_data, F._refactor_dev, plain=plain)
+    out = refactor_pipeline(a_data.to(F.dtype), F._refactor_dev,
+                            plain=plain)
     F.ldata = tri_kernel_from_bank(F.ldata, out["lbank"], out["ldiag"])
     F.udata = tri_kernel_from_bank(F.udata, out["ubank"], out["udiag"])
+    # new numeric state: a make_f64_ldiv callable made before is stale
+    F._generation += 1
     # the host csc factor values (F.L/F.U) materialize lazily from these
     F._factors_stale = True
+    # the chain path (api._prepare_scan_path) holds factor values from the
+    # last re-pack: stale now, so the tile waves serve until the next one
+    F._scan_bands = F._scan_planes = None
+    F._scan_perm_id = False
     F.refactor_diagnostics = {"min_pivot": out["min_pivot"],
                               "growth": out["growth"]}
     rs = out["rs"]
@@ -438,8 +445,9 @@ def refactor_same_pattern(F, A: sp.csc_matrix, *, check: bool = False,
     if not F.has_device_refactor:
         F.enable_device_refactor()
     # the nd value mapping is folded into the assembly plan (data_src), so
-    # the original values go straight in
-    a_data = torch.as_tensor(A.data, dtype=F.dtype, device=F.device)
+    # the original values go straight in (in float64: F keeps them for
+    # make_f64_ldiv's residual)
+    a_data = torch.as_tensor(A.data, dtype=torch.float64, device=F.device)
     refactor_numeric_values(F, a_data, plain=plain)
     if check:
         d = F.refactor_diagnostics

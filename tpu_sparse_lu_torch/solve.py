@@ -27,7 +27,13 @@ from typing import List, Optional
 
 import torch
 
-from .ops.fused_ldiv import Wave, build_waves, wave_apply, wave_apply_plain
+from .ops.fused_ldiv import (
+    Wave,
+    build_waves,
+    wave_apply,
+    wave_apply_bf16,
+    wave_apply_plain,
+)
 from .ops.tri_inverse import tri_inverse
 from .symbolic import TriPlan
 
@@ -51,7 +57,10 @@ class TriKernelData:
     ``diag`` keeps the ``K+1`` diagonal tiles themselves where the bank was
     made on the device (a device refactorization), for
     ``ParallelSparseLU``'s host factors; ``None`` after a host pack, whose
-    host factors are current.
+    host factors are current. ``tiles_bf16`` is a bfloat16 copy of
+    ``tiles_t`` under ``SolverConfig.stream_dtype="bfloat16"``: the tile
+    stream ``ldiv``'s waves read; the bank itself stays at the solver's
+    dtype (``F.L``/``F.U`` and ``lsolve``/``rsolve`` read it).
     """
 
     K: int
@@ -59,6 +68,7 @@ class TriKernelData:
     tiles_t: torch.Tensor  # (K+1+T+1, cs, cs)
     waves: List[Wave]
     diag: Optional[torch.Tensor] = None  # (K+1, cs, cs)
+    tiles_bf16: Optional[torch.Tensor] = None  # (K+1+T+1, cs, cs)
 
     @property
     def diag_inv(self) -> torch.Tensor:
@@ -72,39 +82,52 @@ class TriKernelData:
 
 
 def prepare_tri_kernel(plan: TriPlan, diag: torch.Tensor,
-                       offdiag: torch.Tensor) -> TriKernelData:
-    """Invert the packed diagonal tiles and build the wave schedule.
+                       offdiag: torch.Tensor, *,
+                       bf16_stream: bool = False) -> TriKernelData:
+    """Invert the packed diagonal tiles and build the wave schedule
+    (``bf16_stream``: and the bfloat16 copy of the bank).
 
     The diagonal is always explicit: SuperLU's L stores its unit diagonal
     and the packer writes it into the tiles.
     """
     diag_inv = tri_inverse(diag, lower=plan.lower)
     tiles_t = torch.cat([diag_inv, offdiag]).transpose(1, 2).contiguous()
-    return TriKernelData(K=plan.K, T=plan.T, tiles_t=tiles_t,
-                         waves=build_waves(plan, diag.device))
+    return TriKernelData(
+        K=plan.K, T=plan.T, tiles_t=tiles_t,
+        waves=build_waves(plan, diag.device),
+        tiles_bf16=tiles_t.to(torch.bfloat16) if bf16_stream else None)
 
 
 def tri_kernel_from_bank(prev: TriKernelData, tiles_t: torch.Tensor,
                          diag: torch.Tensor) -> TriKernelData:
-    """``prev`` with a new bank (same plan, same layout): its waves are
-    reused, so nothing is re-planned, re-inverted or read back from the
-    device."""
+    """``prev`` with a new bank (same plan, same layout, and a fresh
+    bfloat16 copy where ``prev`` has one): its waves are reused, so
+    nothing is re-planned, re-inverted or read back from the device."""
     if tiles_t.shape != prev.tiles_t.shape:
         raise ValueError(f"bank {tuple(tiles_t.shape)} does not match the "
                          f"plan's {tuple(prev.tiles_t.shape)}")
-    return dataclasses.replace(prev, tiles_t=tiles_t, diag=diag)
+    bf16 = None if prev.tiles_bf16 is None else tiles_t.to(torch.bfloat16)
+    return dataclasses.replace(prev, tiles_t=tiles_t, diag=diag,
+                               tiles_bf16=bf16)
 
 
 def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
-                      plain: bool = False) -> torch.Tensor:
+                      plain: bool = False,
+                      stream: bool = False) -> torch.Tensor:
     """Solve ``T x = b`` in place on the chunk-blocked ``xw (K+1, cs, R)``.
 
+    ``stream=True`` reads the tile stream of ``ldiv``: the bfloat16 copy
+    where there is one (through :func:`wave_apply_bf16`), else the bank.
     ``plain=True`` runs the plain PyTorch waves on any device; it exists to
     hold the kernel path against them on the card.
     """
-    apply = wave_apply_plain if plain else wave_apply
+    tiles, apply = data.tiles_t, wave_apply
+    if stream and data.tiles_bf16 is not None:
+        tiles, apply = data.tiles_bf16, wave_apply_bf16
+    if plain:
+        apply = wave_apply_plain
     for w in data.waves:
-        apply(xw, data.tiles_t, w)
+        apply(xw, tiles, w)
     return xw
 
 

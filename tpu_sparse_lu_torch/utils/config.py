@@ -12,13 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-_NOT_YET = {
-    ("tri_mode", "trsm"): "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
-    ("tri_mode", "inv_refine"):
-        "ROADMAP.md queue A item 8 (trsm / inv_refine modes)",
-    ("stream_dtype", "bfloat16"):
-        "ROADMAP.md queue A item 10 (bfloat16 tile stream)",
-}
+# tri_mode values the port does not serve yet
+_NOT_YET = ("trsm", "inv_refine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +35,11 @@ class SolverConfig:
       nd_cutoff: nd base-subdomain size: ``None`` (= cs), an int, or
         ``"auto"`` (tries {cs, 2cs, 4cs} under the tile-count cost model,
         one trial factorization each).
-      stream_dtype: dtype of the L/U tiles the solve reads; ``"float32"``.
+      stream_dtype: dtype of the L/U tiles ``ldiv`` reads: ``"float32"``
+        (the bank itself) or ``"bfloat16"`` (a half-width copy of the bank,
+        widened to float32 as the waves read it; needs ``dtype="float32"``;
+        pair it with ``make_f64_ldiv`` or ``refine_steps``). The bank that
+        ``F.L``/``F.U``, ``lsolve`` and ``rsolve`` read stays at ``dtype``.
       factorize: first-factorization backend. ``"host"`` (default):
         SuperLU. ``"device"``: no numeric host factorization; the first
         factorization is the blocked device elimination of
@@ -63,14 +62,11 @@ class SolverConfig:
     refactor_store_budget: Optional[int] = None
 
     def __post_init__(self):
-        for field, value in (("tri_mode", self.tri_mode),
-                             ("factorize", self.factorize),
-                             ("stream_dtype", self.stream_dtype)):
-            if (field, value) in _NOT_YET:
-                raise NotImplementedError(
-                    f"{field}={value!r} is not ported yet: "
-                    f"{_NOT_YET[field, value]}"
-                )
+        if self.tri_mode in _NOT_YET:
+            raise NotImplementedError(
+                f"tri_mode={self.tri_mode!r} is not ported yet: ROADMAP.md "
+                "queue A item 8 (trsm / inv_refine modes)"
+            )
         if self.tri_mode not in ("auto", "inv"):
             raise ValueError(f"unknown tri_mode: {self.tri_mode!r}")
         if self.dtype not in (None, "float32", "float64"):
@@ -80,7 +76,7 @@ class SolverConfig:
         if not (self.nd_cutoff is None or self.nd_cutoff == "auto"
                 or isinstance(self.nd_cutoff, int)):
             raise ValueError(f"unknown nd_cutoff: {self.nd_cutoff!r}")
-        if self.stream_dtype != "float32":
+        if self.stream_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown stream_dtype: {self.stream_dtype!r}")
         if self.factorize not in ("host", "device", "auto"):
             raise ValueError(f"unknown factorize: {self.factorize!r}")
