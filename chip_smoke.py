@@ -41,7 +41,11 @@ Phases, one line of output each; any failure raises and exits non-zero:
    ``bench.py:261-270``);
 9. timing (CUDA events, medians): the config-2 step, ``refactor_numeric``
    on both deployments with the kernels against ``plain=True``, and each
-   refactorization kernel at the headline's shapes;
+   refactorization kernel at the headline's shapes; then device times by
+   CUDA-graph replay: every tile product of one elimination (headline and
+   config 2) against ``torch.bmm`` on the same products, the
+   ``refactor_numeric`` pipeline, and ``span_gather``/``lu_tile`` against
+   ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off);
 10. the chain kernel (B5, ``bidiag_ldiv``) against its plain version on
     seeded random bands (|a| <= 0.9) at n in {7, 128, 257, 5000, 20000,
     1,048,577} and R in {1, 3, 16}, float32 and float64, both sweeps and
@@ -71,8 +75,12 @@ Phases, one line of output each; any failure raises and exits non-zero:
     version; and ``make_f64_ldiv`` at R = 16 with the fewest sweeps that
     meet 1e-12, float32 and bfloat16 streams.
 
-Then one JSON line on the kernels, and last the device JSON line. Exits
+Then one JSON line on the kernels (each with its time, its bound from
+this run's bytes and FLOP against the card's published peaks, and its
+library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
+``--phases 6,9`` runs phase 1 and only those of phases 6-9, with no
+result line (for iterating on the refactorization kernels).
 """
 
 import json
@@ -148,6 +156,67 @@ def _median_ms(fn, reps=50, warmup=5, setup=lambda: None) -> float:
         marks.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in marks]))
+
+
+def _graph_ms(fn, reps=30, setup=lambda: None) -> float:
+    """Median device time of ``fn``'s launches, captured once in a CUDA
+    graph and replayed (CUDA events around each replay): no host launch
+    cost. ``setup`` runs before each replay, outside the events and the
+    graph. Warm-up runs on a side stream first, so one-time work
+    (library handles, workspaces) stays out of the capture."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            setup()
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    setup()
+    with torch.cuda.graph(graph):
+        fn()
+    return _median_ms(lambda _: graph.replay(), reps=reps, warmup=3,
+                      setup=setup)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# the card's published peaks (H100 SXM data sheet, at 700 W): HBM3 and
+# FP32 FMAs outside the tensor cores (TF32 is not allowed here)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# (bytes, FLOP) of each kernel's timed call, from this run's inputs: each
+# input read once, each output written once; filled by the timing phases
+WORK = {}
+# the one PyTorch call that computes a kernel's function, timed beside it
+# as a yardstick (never on the port's path), or why there is none
+LIBRARY = {
+    "perm_gather": "none: a gather, a scale and a -1 mask in one pass",
+    "wave_apply": "none: a gather-product-scatter per wave",
+    "span_gather": "torch.index_select(a_pad, 0, flat_idx), flat_idx "
+                   "precomputed from the spans",
+    "lu_tile": "torch.linalg.lu_factor_ex(tiles, pivot=False), eager "
+               "(not capturable): the LU alone, the kernel also writes "
+               "both inverses",
+    "tile_mm": "torch.bmm per launch on operands gathered once; the "
+               "gather, the sum by destination and the subtraction are "
+               "not timed",
+    "wave_apply_bf16": "none: a gather-product-scatter per wave",
+    "bidiag_ldiv": "none: two affine prefix scans",
+}
+
+
+def _bound(name):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FLOP over the FP32 peak."""
+    nbytes, flop = WORK[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _backward_error(A, X, B) -> float:
@@ -393,6 +462,14 @@ def phase_timing(F, smi):
                 F.udata, blocked_tri_solve(F.ldata, x, plain=plain),
                 plain=plain),
             setup=x0.clone)
+    x_bytes = x0.numel() * x0.element_size()
+    WORK["perm_gather"] = (
+        _nbytes(b, F._pidx, F._rs) + x_bytes          # perm-in
+        + x_bytes + _nbytes(F._qidx) + _nbytes(b),    # perm-out
+        b.numel())
+    tiles = [d.tiles_t for d in (F.ldata, F.udata)]
+    WORK["wave_apply"] = (_nbytes(*tiles) + 2 * x_bytes,
+                          2 * R * sum(t.numel() for t in tiles))
     print(f"phase 5 timing on {smi}: median ldiv R={R} kernels "
           f"{ms['ldiv']:.4f} ms, plain torch {ms['ldiv_plain']:.4f} ms; "
           f"perm-in+out {ms['perm_gather']:.4f} / "
@@ -463,6 +540,7 @@ def phase_refactor_kernels_vs_plain():
     (float32) and the worst relative differences."""
     import torch
 
+    from tpu_sparse_lu_torch.ops import elimination
     from tpu_sparse_lu_torch.ops.elimination import (
         eliminate, make_groups, tile_mm, tile_mm_plain,
     )
@@ -472,6 +550,7 @@ def phase_refactor_kernels_vs_plain():
     )
 
     rng = np.random.default_rng(4)
+    n_shapes = 0
     worst = {"lu_tile": {"float32": 0.0, "float64": 0.0},
              "tile_mm": {"float32": 0.0, "float64": 0.0}}
 
@@ -515,31 +594,44 @@ def phase_refactor_kernels_vs_plain():
                 outs.append((t, p, li, ui))
             for got, ref in zip(outs[0], outs[1]):
                 note("lu_tile", dt, got, ref, LU_TOL)
-            # tile products: both strip sides, overwrite and subtract,
-            # several entries per destination
-            out0 = torch.as_tensor(rng.standard_normal((8, cs, cs)) / cs,
-                                   dtype=tdt, device="cuda")
-            b = torch.as_tensor(rng.standard_normal((5, cs, cs)) / cs,
-                                dtype=tdt, device="cuda")
-            cases = [
-                # in place: output tile = a operand (row strips)
-                (make_groups([1, 4], [[(1, 0)], [(4, 2)]], "cuda"),
-                 "row", False, "out", "b"),
-                # in place: output tile = b operand (column strips)
-                (make_groups([2, 6], [[(3, 2)], [(0, 6)]], "cuda"),
-                 "col", False, "b", "out"),
-                # Schur-like: a shared destination, distinct operands
-                (make_groups([7, 5], [[(0, 1), (2, 3), (4, 0)], [(3, 3)]],
-                             "cuda"), "row", True, "out", "out"),
-            ]
-            for groups, side, sub, an, bn in cases:
-                res = []
-                for fn in (tile_mm, tile_mm_plain):
-                    o = out0.clone()
-                    ops = {"out": o, "b": b}
-                    fn(o, ops[an], ops[bn], groups, side=side, subtract=sub)
-                    res.append(o)
-                note("tile_mm", dt, res[0], res[1], ELIM_TOL)
+        # tile products: in place on a (whole rows), in place on b (whole
+        # columns) and Schur-like (any split), overwrite and subtract,
+        # several entries per destination; every sub-tile shape the kernel
+        # is built for, then the wrapper's own pick; cs = 45 takes the
+        # element-wise copies (not a multiple of 16 bytes)
+        pick = elimination.pick_tile
+        try:
+            for cs in (16, 45, 128):
+                out0 = torch.as_tensor(rng.standard_normal((8, cs, cs)) / cs,
+                                       dtype=tdt, device="cuda")
+                b = torch.as_tensor(rng.standard_normal((5, cs, cs)) / cs,
+                                    dtype=tdt, device="cuda")
+                cases = [
+                    (make_groups([1, 4], [[(1, 0)], [(4, 2)]], "cuda"),
+                     "row", False, "out", "b", "rows"),
+                    (make_groups([2, 6], [[(3, 2)], [(0, 6)]], "cuda"),
+                     "col", False, "b", "out", "cols"),
+                    (make_groups([7, 5], [[(0, 1), (2, 3), (4, 0)],
+                                          [(3, 3)]], "cuda"),
+                     "row", True, "out", "out", None),
+                ]
+                for groups, side, sub, an, bn, owner in cases:
+                    shapes = list(elimination.TILE_SHAPES[owner])
+                    for shape in shapes + [None]:
+                        elimination.pick_tile = (
+                            pick if shape is None
+                            else lambda *_, s=shape: s)
+                        res = []
+                        for fn in (tile_mm, tile_mm_plain):
+                            o = out0.clone()
+                            ops = {"out": o, "b": b}
+                            fn(o, ops[an], ops[bn], groups, side=side,
+                               subtract=sub)
+                            res.append(o)
+                        note("tile_mm", dt, res[0], res[1], ELIM_TOL)
+                        n_shapes += 1
+        finally:
+            elimination.pick_tile = pick
 
     # the real stores of both deployments, float32 and float64
     err = {"span_gather": 0.0, "lu_tile": 0.0, "tile_mm": 0.0}
@@ -596,7 +688,8 @@ def phase_refactor_kernels_vs_plain():
           f"/{LU_TOL['float64']:g}); elimination f32 "
           f"{worst['tile_mm']['float32']:.3e} f64 "
           f"{worst['tile_mm']['float64']:.3e} (bounds "
-          f"{ELIM_TOL['float32']:g}/{ELIM_TOL['float64']:g}); real stores "
+          f"{ELIM_TOL['float32']:g}/{ELIM_TOL['float64']:g}; {n_shapes} "
+          f"random tile_mm launches over every sub-tile shape); real stores "
           f"(TF, levels, widest, Schur entries, shared destinations): "
           f"headline {real['headline']}, config 2 {real['config2']}; "
           f"headline f32 max abs lu_tile {err['lu_tile']:.3e} elimination "
@@ -798,7 +891,143 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"{ms['tile_mm']:.4f} / {ms['tile_mm_plain']:.4f} ms, whole "
           f"elimination {ms['elimination']:.4f} / "
           f"{ms['elimination_plain']:.4f} ms")
+    rows = sg[0].shape[0]
+    WORK["span_gather"] = (_nbytes(a_pad, *sg) + rows * cs * a.element_size(),
+                           0)
+    # read the tiles, write them and both inverses; LU 2/3 cs^3 and each
+    # triangular inverse 1/3 cs^3 FLOP
+    WORK["lu_tile"] = (4 * nb * cs * cs * store.element_size(),
+                       nb * 4 / 3 * cs ** 3)
+    ms.update(_refactor_device_times(
+        (("headline", F, A), ("config2", F2c, A2c)), ms, smi))
+    # the library calls of B4 and B2 at the same shapes, device times
+    g, lo, hi = (x.long() for x in sg)
+    k = torch.arange(cs, device="cuda")
+    idx = g[:, None] + k[None, :]
+    inside = ((k >= lo[:, None]) & (k < hi[:, None]) & (idx >= 0)
+              & (idx < a_pad.numel()))
+    flat_idx = torch.where(inside, idx, 0).reshape(-1)  # a_pad[0] == 0
+    if not torch.equal(torch.index_select(a_pad, 0, flat_idx).view(rows, cs),
+                       span_gather_plain(a_pad, *sg, cs)):
+        raise AssertionError("index_select yardstick differs from the span "
+                             "gather")
+    ms["span_gather_library"] = _graph_ms(
+        lambda: torch.index_select(a_pad, 0, flat_idx))
+    ms["span_gather_device"] = _graph_ms(lambda: span_gather(a_pad, *sg, cs))
+    tiles0 = store[lvl0.diag.long()]
+    eye = torch.eye(cs, dtype=store.dtype, device="cuda").expand(nb, cs, cs)
+
+    def lu_and_inverses():
+        lu = torch.linalg.lu_factor_ex(tiles0, pivot=False).LU
+        torch.linalg.solve_triangular(lu, eye, upper=False,
+                                      unitriangular=True)
+        torch.linalg.solve_triangular(lu, eye, upper=True)
+
+    # lu_factor_ex cannot be captured in a CUDA graph (it refuses the
+    # capture on the card): CUDA events around the one eager call
+    ms["lu_tile_library"] = _median_ms(
+        lambda _: torch.linalg.lu_factor_ex(tiles0, pivot=False), reps=30)
+    ms["lu_tile_library_inv"] = _median_ms(lambda _: lu_and_inverses(),
+                                           reps=30)
+    ms["lu_tile_device"] = _graph_ms(
+        lambda: lu_tile(store, lvl0.diag, linv=li, uinv=ui),
+        setup=lambda: store.index_copy_(0, lvl0.diag.long(), tiles0))
+    print(f"phase 9 library calls on {smi} (CUDA-graph replay, TF32 off): "
+          f"span_gather kernel {ms['span_gather_device']:.4f} ms vs "
+          f"index_select {ms['span_gather_library']:.4f} ms; lu_tile on the "
+          f"{nb} level-0 tiles kernel (LU + both inverses) "
+          f"{ms['lu_tile_device']:.4f} ms vs lu_factor_ex(pivot=False) "
+          f"{ms['lu_tile_library']:.4f} ms (the LU alone; eager CUDA events,"
+          f" it cannot be captured), with two solve_triangular against I "
+          f"{ms['lu_tile_library_inv']:.4f} ms")
     return ms
+
+
+def _refactor_device_times(deployments, ms, smi):
+    """Device times (CUDA-graph replay) of every tile product of one
+    elimination and of the same products through ``torch.bmm``, and of
+    the whole ``refactor_numeric`` pipeline, for each deployment."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.elimination import eliminate, tile_mm
+    from tpu_sparse_lu_torch.refactor import refactor_pipeline
+
+    out, shapes = {}, {}
+    for name, Fx, Ax in deployments:
+        dev = Fx._refactor_dev
+        cs = dev.cs
+        store, _ = _real_store(Fx, Ax, plain=True)
+        _, _, linv, uinv = eliminate(store.clone(), dev.elim)
+        linv, uinv = (x.reshape(-1, cs, cs) for x in (linv, uinv))
+        work = store.clone()
+        out[f"tile_mm_{name}_device"] = _graph_ms(
+            lambda: _elim_products(work, linv, uinv, dev.elim, tile_mm),
+            setup=lambda: work.copy_(store))
+        # each launch's operands gathered once, outside the timed window
+        ops, read, inv, wrote = [], set(), 0, set()
+        for lvl in dev.elim.levels:
+            for g, x, y in ((lvl.rows, work, uinv), (lvl.cols, linv, work),
+                            (lvl.schur, work, work)):
+                if g is None:
+                    continue
+                ai, bi = g.a_idx.long(), g.b_idx.long()
+                ops.append((x[ai], y[bi]))
+                d = set(g.dst.tolist())
+                wrote |= d
+                if g is lvl.rows:
+                    read |= set(ai.tolist())
+                    inv += len(set(bi.tolist()))
+                elif g is lvl.cols:
+                    read |= set(bi.tolist())
+                    inv += len(set(ai.tolist()))
+                else:
+                    read |= set(ai.tolist()) | set(bi.tolist()) | d
+        prods = [torch.empty_like(x) for x, _ in ops]
+
+        def bmm_all():
+            for (x, y), p in zip(ops, prods):
+                torch.bmm(x, y, out=p)
+
+        out[f"tile_mm_{name}_library"] = _graph_ms(bmm_all)
+        n_prod = sum(x.shape[0] for x, _ in ops)
+        tile = cs * cs * store.element_size()
+        if name == "headline":
+            # store tiles read and written once, inverse tiles read once
+            WORK["tile_mm"] = ((len(read) + inv + len(wrote)) * tile,
+                               2 * cs ** 3 * n_prod)
+        shapes[name] = (len(ops), n_prod)
+        out[f"elimination_{name}_graph"] = _graph_ms(
+            lambda: eliminate(work, dev.elim), setup=lambda: work.copy_(store),
+            reps=20)
+        a = torch.as_tensor(Ax.data, dtype=torch.float32, device="cuda")
+        out[f"refactor_{name}_graph"] = _graph_ms(
+            lambda: refactor_pipeline(a, dev), reps=20)
+    r = {n: out[f"tile_mm_{n}_device"] / out[f"tile_mm_{n}_library"]
+         for n in shapes}
+    gflop = WORK["tile_mm"][1] / 1e9
+    print(f"phase 9 tile products on {smi} (CUDA-graph replay; "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}): headline "
+          f"{shapes['headline'][0]} launches, {shapes['headline'][1]} "
+          f"products of 128^3 ({gflop:.2f} GFLOP): tile_mm_device_ms "
+          f"{out['tile_mm_headline_device']:.4f} "
+          f"({gflop / out['tile_mm_headline_device']:.2f} TFLOP/s of 67), "
+          f"bmm library_ms {out['tile_mm_headline_library']:.4f}, ratio "
+          f"{r['headline']:.3f}; config 2 {shapes['config2'][0]} launches, "
+          f"{shapes['config2'][1]} products: tile_mm_device_ms "
+          f"{out['tile_mm_config2_device']:.4f}, bmm library_ms "
+          f"{out['tile_mm_config2_library']:.4f}, ratio {r['config2']:.3f}; "
+          f"config-2 fused step / its bmm "
+          f"{ms['config2_step'] / out['tile_mm_config2_library']:.2f}; "
+          f"whole elimination graph replay headline "
+          f"{out['elimination_headline_graph']:.4f} ms, config 2 "
+          f"{out['elimination_config2_graph']:.4f} ms; "
+          f"refactor_numeric pipeline graph replay headline "
+          f"{out['refactor_headline_graph']:.4f} ms (eager "
+          f"{ms['refactor_headline']:.4f}), config 2 "
+          f"{out['refactor_config2_graph']:.4f} ms (eager "
+          f"{ms['refactor_config2']:.4f})")
+    return out
 
 
 def _random_planes(rng, n, tdt):
@@ -1134,6 +1363,13 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
         "f32": sum(d.tiles_t.numel() * 4 for d in (F.ldata, F.udata)),
         "bf16": sum(d.tiles_bf16.numel() * 2 for d in (Fb.ldata, Fb.udata)),
     }
+    WORK["wave_apply_bf16"] = (
+        nbytes["bf16"] + 2 * _nbytes(x0),
+        2 * R * sum(d.tiles_bf16.numel() for d in (Fb.ldata, Fb.udata)))
+    # config 1 at R = 1: four planes and b read, x written; two FMAs a
+    # row per sweep
+    WORK["bidiag_ldiv"] = (_nbytes(*F1._scan_planes.values()) + 2 * F1.n * 4,
+                           4 * F1.n)
     print(f"phase 13 chain + bf16 timing on {smi}: config 1 ldiv R=1 chain "
           f"kernel {ms['c1_chain_R1']:.4f} ms, plain scan "
           f"{ms['c1_plain_R1']:.4f} ms, tile waves {ms['c1_waves_R1']:.4f} ms"
@@ -1152,9 +1388,35 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     return ms
 
 
+def _some_phases(phases, smi) -> int:
+    """Phases 6-9 alone (9 runs 8 first, for its fused step); prints no
+    result line."""
+    if not phases or not phases <= {6, 7, 8, 9}:
+        raise SystemExit(f"--phases takes a subset of 6,7,8,9, got "
+                         f"{sorted(phases)}")
+    if 6 in phases:
+        phase_refactor_kernels_vs_plain()
+    if 7 in phases:
+        phase_device_lifecycle()
+    if phases & {8, 9}:
+        A2c, F2c, step = phase_config2_step()
+        if 9 in phases:
+            phase_refactor_timing(A2c, F2c, step, smi)
+    print(f"chip_smoke: phases {sorted(phases | {1})} passed (a partial run: "
+          f"no result line)")
+    return 0
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=None,
+                        help="run only these of phases 6-9 after phase 1, "
+                             "comma-separated (no result line)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -1162,6 +1424,8 @@ def main() -> int:
     import tpu_sparse_lu_torch  # noqa: F401  (fails outside the repo)
 
     name, smi = phase_device()
+    if args.phases is not None:
+        return _some_phases({int(p) for p in args.phases.split(",")}, smi)
     err = phase_kernels_vs_plain()
     A, F, launches = phase_main_path()
     phase_lifecycle(A, F)
@@ -1179,12 +1443,24 @@ def main() -> int:
     bf_launches, f32_steps, bf_steps = phase_f64_tier()
     launches.update(bf_launches)
     ms.update(phase_chain_bf16_timing(smi, f32_steps, bf_steps))
-    kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
-         "plain_ms": ms[k + "_plain"]}
-        for k, (src, tpu) in KERNELS.items()
-    ]
+    # a kernel with a library yardstick is timed as it is, by CUDA-graph
+    # replay (device time); the others by eager CUDA events (host included)
+    graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",
+             "tile_mm": "tile_mm_headline_device"}
+    library = {"span_gather": "span_gather_library",
+               "lu_tile": "lu_tile_library",
+               "tile_mm": "tile_mm_headline_library"}
+    kernels = []
+    for k, (src, tpu) in KERNELS.items():
+        bound_ms, bound_by = _bound(k)
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[k], "max_abs_err": err[k],
+            "ms": ms[graph.get(k, k)], "plain_ms": ms[k + "_plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": ms[library[k]] if k in library else None,
+            "timing": "graph replay" if k in graph else "eager",
+            "eager_ms": ms[k], "library": LIBRARY[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

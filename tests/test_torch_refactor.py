@@ -44,8 +44,10 @@ from tpu_sparse_lu.ops.pallas_span import span_gather as jax_span_gather
 from tpu_sparse_lu.refactor import _blocked_elimination, _lu_nopivot
 from tpu_sparse_lu_torch.assemble import assemble, assembly_device_arrays
 from tpu_sparse_lu_torch.ops.elimination import (
+    TILE_SHAPES,
     eliminate,
     make_groups,
+    pick_tile,
     tile_mm,
     tile_mm_plain,
 )
@@ -408,6 +410,89 @@ def test_tile_mm_plain_semantics(rng):
         make_groups([1], [[]], "cpu")
     with pytest.raises(ValueError, match="negative"):
         make_groups([1], [[(-1, 0)]], "cpu")
+
+
+def _headline_plan_case(rng):
+    return poisson_2d(100, 100)
+
+
+# the plans above, and the 2D Poisson 100x100 nd headline at cs = 128
+SPLIT_CASES = dict(PLAN_CASES, headline=(
+    _headline_plan_case, dict(chunk_size=128, ordering="nd", nd_cutoff=512)))
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_elimination_launches_meet_the_split_rule(rng, case):
+    """What the kernel's sub-tile split relies on: a panel group's
+    destination is its own in-place operand (the a tile of a row panel,
+    the b tile of a column panel), and no Schur destination of a level is
+    an a or b operand of the same launch, so a Schur block may split the
+    destination both ways."""
+    make, cfg = SPLIT_CASES[case]
+    tf = tlu.ParallelSparseLU(make(rng), config=tlu.SolverConfig(**cfg),
+                              device="cpu")
+    tf.enable_device_refactor()
+    sched = tf._refactor_dev.elim
+    n_schur = 0
+    for lvl in sched.levels:
+        if lvl.rows is not None:
+            np.testing.assert_array_equal(lvl.rows.a_idx.numpy(),
+                                          lvl.rows.dst.numpy())
+            assert lvl.rows.dst_in_a
+        if lvl.cols is not None:
+            np.testing.assert_array_equal(lvl.cols.b_idx.numpy(),
+                                          lvl.cols.dst.numpy())
+            assert lvl.cols.dst_in_b
+        if lvl.schur is not None:
+            g = lvl.schur
+            ops = np.union1d(g.a_idx.numpy(), g.b_idx.numpy())
+            assert not np.isin(g.dst.numpy(), ops).any()
+            assert not (g.dst_in_a or g.dst_in_b)
+            n_schur += g.a_idx.shape[0]
+    assert n_schur > 0
+    if case == "headline":
+        assert (sched.cs, len(sched.levels), n_schur) == (128, 8, 337)
+
+
+@pytest.mark.parametrize("n_sm", [78, 132])
+@pytest.mark.parametrize("owner", ["rows", "cols", None])
+@pytest.mark.parametrize("n_groups", [1, 2, 23, 51, 113, 300])
+def test_pick_tile_choices(n_groups, owner, n_sm):
+    cs = 128
+    bm, bn = pick_tile(n_groups, cs, owner, n_sm)
+    assert (bm, bn) in TILE_SHAPES[owner]
+    blocks = n_groups * (cs // bm) * (cs // bn)
+    assert blocks >= 8  # even a one-product launch spreads
+    if owner == "rows":
+        assert bn >= cs  # a block owns whole rows of its own a operand
+    if owner == "cols":
+        assert bm >= cs  # whole columns of its own b operand
+    # the largest shape that fills the card; the smallest when none does
+    shapes = list(TILE_SHAPES[owner])
+    if blocks >= n_sm:
+        bigger = shapes[:shapes.index((bm, bn))]
+        assert all(n_groups * (cs // m) * (cs // n) < n_sm
+                   for m, n in bigger)
+    else:
+        assert (bm, bn) == shapes[-1]
+
+
+def test_tile_mm_refuses_a_destination_on_the_other_side(rng):
+    """side="row" lets a destination be its own a operand only; an alias
+    of b (or, with side="col", of a) would be a race in the kernel."""
+    cs = 4
+    out = torch.as_tensor(rng.standard_normal((4, cs, cs)))
+    other = torch.as_tensor(rng.standard_normal((4, cs, cs)))
+    g = make_groups([1], [[(0, 1)]], "cpu")
+    with pytest.raises(ValueError, match="b operand"):
+        tile_mm(out, other, out, g, side="row", subtract=False)
+    with pytest.raises(ValueError, match="a operand"):
+        tile_mm(out, out, other, make_groups([0], [[(0, 1)]], "cpu"),
+                side="col", subtract=False)
+    # the same indices in another bank are no alias
+    want = other[0] @ other[1]
+    tile_mm(out, other, other, g, side="row", subtract=False)
+    np.testing.assert_allclose(out[1].numpy(), want.numpy(), rtol=1e-12)
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -272,9 +272,11 @@ def assemble(a_data: torch.Tensor, dev: dict, *, n: int, cs: int, TF: int,
     # 2. leftovers of contested rows
     if dev["left_src"].numel():
         rows2v[dev["left_row"], dev["left_col"]] = a_data[dev["left_src"]]
-    # 3. nd identity entries, before the equilibration
+    # 3. nd identity entries, before the equilibration (a device scalar:
+    # no host copy, so the pipeline can be captured in a CUDA graph)
+    one = torch.ones((), dtype=dt, device=a_data.device)
     if dev["ones_row"].numel():
-        rows2v[dev["ones_row"], dev["ones_col"]] = 1.0
+        rows2v[dev["ones_row"], dev["ones_col"]] = one
     t2 = rows2v.view(TF2 + 1, cs, cs)  # transposed: (tile, col, row)
     # 4. row equilibration on the unpermuted store: max over the column
     # axis, then over the tiles of each block row
@@ -288,5 +290,5 @@ def assemble(a_data: torch.Tensor, dev: dict, *, n: int, cs: int, TF: int,
     rowsP = rows2[dev["permrow_src"]]
     # 7. identity pads
     if dev["pad_row"].numel():
-        rowsP[dev["pad_row"], dev["pad_col"]] = 1.0
+        rowsP[dev["pad_row"], dev["pad_col"]] = one
     return rowsP.view(TF + 2, cs, cs), rs

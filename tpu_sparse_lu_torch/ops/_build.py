@@ -111,7 +111,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f.argtypes = [P, P, I, P, P, P, I, P]
         f.restype = I
         f = getattr(lib, f"tile_mm_{dt}")
-        f.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+        f.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         f.restype = I
         f = getattr(lib, f"bidiag_ldiv_{dt}")
         f.argtypes = [P, P, P, P, P, P, L, I, P]

@@ -24,6 +24,7 @@ CPU tensor; ``tile_mm.LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -38,6 +39,8 @@ __all__ = [
     "ElimLevel",
     "ElimSchedule",
     "build_elim_schedule",
+    "TILE_SHAPES",
+    "pick_tile",
     "tile_mm",
     "tile_mm_plain",
     "eliminate",
@@ -53,7 +56,8 @@ class TileGroups:
     entry's group. All int32 on one device. ``out_tiles``, ``a_tiles`` and
     ``b_tiles`` (one past the largest index of each kind) are found on the
     host when the groups are made, so a launch checks its operands without
-    reading the device.
+    reading the device; so are ``dst_in_a`` and ``dst_in_b``, whether some
+    destination index is also an ``a`` (``b``) index of the launch.
     """
 
     dst: torch.Tensor
@@ -64,6 +68,8 @@ class TileGroups:
     out_tiles: int
     a_tiles: int
     b_tiles: int
+    dst_in_a: bool
+    dst_in_b: bool
 
 
 def make_groups(dst, groups, device) -> TileGroups:
@@ -90,6 +96,8 @@ def make_groups(dst, groups, device) -> TileGroups:
         out_tiles=int(dst.max(initial=-1)) + 1,
         a_tiles=int(a.max(initial=-1)) + 1,
         b_tiles=int(b.max(initial=-1)) + 1,
+        dst_in_a=bool(np.isin(dst, a).any()),
+        dst_in_b=bool(np.isin(dst, b).any()),
     )
 
 
@@ -172,6 +180,40 @@ def tile_mm_plain(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+# The sub-tiles (rows, cols) of a destination that one block of the
+# kernel computes, largest first, by what a block must own: "rows" when a
+# destination is its own ``a`` operand (a row panel), "cols" when it is
+# its own ``b`` (a column panel), None when no destination is an operand
+# (Schur). Each thread holds (rows / 16) x (cols / 16) of the sub-tile.
+TILE_SHAPES = {
+    "rows": ((64, 128), (32, 128), (16, 128)),
+    "cols": ((128, 64), (128, 32), (128, 16)),
+    None: ((64, 128), (64, 64), (32, 64), (32, 32)),
+}
+_SIDE_CODE = {"rows": 0, "cols": 1, None: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile(n_groups: int, cs: int, owner: Optional[str], n_sm: int):
+    """The largest sub-tile of ``TILE_SHAPES[owner]`` that gives the
+    launch at least one block per SM, else the smallest: a launch of one
+    product still spreads over ≥ 8 blocks at cs = 128."""
+    shapes = TILE_SHAPES[owner]
+    for bm, bn in shapes:
+        if n_groups * (-(-cs // bm)) * (-(-cs // bn)) >= n_sm:
+            return bm, bn
+    return shapes[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _same_storage(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+
+
 def tile_mm(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             groups: TileGroups, *, side: str, subtract: bool) -> torch.Tensor:
     """``out[dst[d]] = (out[dst[d]] −)? Σ_e a[a_idx[e]] @ b[b_idx[e]]`` for
@@ -179,9 +221,10 @@ def tile_mm(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     ``out``, ``a``, ``b`` contiguous ``(·, cs, cs)`` tile banks of one
     dtype; ``a`` or ``b`` may be ``out`` itself. ``side="row"`` lets a
-    group's output tile be its own ``a`` operand (each block reads and
-    writes one row strip), ``side="col"`` its own ``b`` operand (column
-    strips); otherwise no destination may be an operand of the launch.
+    group's output tile be its own ``a`` operand (a block then owns whole
+    rows), ``side="col"`` its own ``b`` operand (whole columns); otherwise
+    no destination may be an operand of the launch, and a block may own
+    any sub-tile (:func:`pick_tile`).
     """
     require(side in ("row", "col"), f"side must be 'row' or 'col', "
                                     f"got {side!r}")
@@ -189,7 +232,13 @@ def tile_mm(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             and groups.a_tiles <= a.shape[0]
             and groups.b_tiles <= b.shape[0],
             "tile groups index past a tile bank")
-    if device_kind(out, a, b, groups.dst) == "cpu":
+    kind = device_kind(out, a, b, groups.dst)
+    in_a = groups.dst_in_a and _same_storage(a, out)
+    in_b = groups.dst_in_b and _same_storage(b, out)
+    require(not (in_b if side == "row" else in_a),
+            f"side={side!r}: a destination is the launch's "
+            f"{'b' if side == 'row' else 'a'} operand")
+    if kind == "cpu":
         return tile_mm_plain(out, a, b, groups, side=side, subtract=subtract)
     require(out.dtype in KERNEL_DTYPES and a.dtype == out.dtype
             and b.dtype == out.dtype,
@@ -202,11 +251,14 @@ def tile_mm(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     L = lib()
     require(cs <= L.max_chunk,
             f"the CUDA tile_mm kernel takes cs <= {L.max_chunk}, got {cs}")
+    owner = "rows" if in_a else "cols" if in_b else None
+    n = groups.dst.shape[0]
+    bm, bn = pick_tile(n, cs, owner, _sm_count(out.device.index))
     fn = getattr(L, f"tile_mm_{KERNEL_DTYPES[out.dtype]}")
     rc = fn(out.data_ptr(), a.data_ptr(), b.data_ptr(), groups.dst.data_ptr(),
             groups.ptr.data_ptr(), groups.a_idx.data_ptr(),
-            groups.b_idx.data_ptr(), groups.dst.shape[0], cs,
-            0 if side == "row" else 1, int(subtract), stream(out))
+            groups.b_idx.data_ptr(), n, cs, _SIDE_CODE[owner], int(subtract),
+            bm, bn, stream(out))
     check(rc, "tile_mm")
     tile_mm.LAUNCHES += 1
     return out
