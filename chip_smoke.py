@@ -23,13 +23,14 @@ Phases, one line of output each; any failure raises and exits non-zero:
 5. the median ``ldiv`` time at R = 16 (CUDA events), kernels against the
    plain PyTorch path on the same CUDA tensors;
 6. the refactorization kernels against their plain versions: span gather
-   (B4, bit for bit), tile LU (B2) and the elimination's tile products
-   (B3) on seeded random inputs at cs in {16, 128} in float32 and float64,
-   then the real stores of both deployments — the headline and BASELINE
-   config 2 (``block_banded(rng, 120, 30)``, colamd, chunk_size=128) —
-   assembled and eliminated by the kernels and by the plain versions
-   (bounds: ``LU_TOL`` and ``ELIM_TOL``, max relative difference over the
-   real tiles);
+   (B4, bit for bit) at cs in {16, 128}, tile LU (B2) with both inverses
+   and alone at cs in {16, 45, 100, 128} and the elimination's tile
+   products (B3) at cs in {16, 45, 128}, on seeded random inputs in
+   float32 and float64; then the real stores of both deployments — the
+   headline and BASELINE config 2 (``block_banded(rng, 120, 30)``,
+   colamd, chunk_size=128) — assembled and eliminated by the kernels and
+   by the plain versions (bounds: ``LU_TOL`` and ``ELIM_TOL``, max
+   relative difference over the real tiles);
 7. the device lifecycle on the headline: construct with
    ``factorize="auto"`` (device under nd: no SuperLU), ``ldiv`` (same
    bars as phase 3), ``refactor_numeric`` with seeded same-pattern values
@@ -44,8 +45,11 @@ Phases, one line of output each; any failure raises and exits non-zero:
    refactorization kernel at the headline's shapes; then device times by
    CUDA-graph replay: every tile product of one elimination (headline and
    config 2) against ``torch.bmm`` on the same products, the
-   ``refactor_numeric`` pipeline, and ``span_gather``/``lu_tile`` against
-   ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off);
+   ``refactor_numeric`` pipeline, the elimination less its tile products
+   (its ``lu_tile`` launches), ``span_gather``/``lu_tile`` against
+   ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off), and
+   ``lu_tile`` with and without the inverses on the headline's 23
+   level-0 tiles and on config 2's one-tile level 0;
 10. the chain kernel (B5, ``bidiag_ldiv``) against its plain version on
     seeded random bands (|a| <= 0.9) at n in {7, 128, 257, 5000, 20000,
     1,048,577} and R in {1, 3, 16}, float32 and float64, both sweeps and
@@ -103,6 +107,9 @@ CONFIG2 = dict(nblocks=120, bs=30, chunk_size=128, R=8)
 # tile products. The elimination compounds that over its levels.
 LU_TOL = {"float32": 1e-5, "float64": 1e-12}
 ELIM_TOL = {"float32": 1e-4, "float64": 1e-11}
+# tile sizes of the random tile-LU checks: one partial panel of 32
+# columns, ragged last panels, whole panels
+LU_SIZES = (16, 45, 100, 128)
 KERNELS = {
     # name: (route source, TPU kernel it replaces)
     "perm_gather": ("tpu_sparse_lu_torch/csrc/ldiv.cu",
@@ -179,6 +186,24 @@ def _graph_ms(fn, reps=30, setup=lambda: None) -> float:
         fn()
     return _median_ms(lambda _: graph.replay(), reps=reps, warmup=3,
                       setup=setup)
+
+
+def _lu_tile_ms(store, diag, inverses: bool) -> float:
+    """Device time (CUDA-graph replay) of one ``lu_tile`` launch on
+    ``store[diag]``, with both inverses or the LU alone; the tiles are
+    put back before each replay."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
+
+    nb, cs = diag.shape[0], store.shape[1]
+    rows = diag.long()
+    tiles0 = store[rows]
+    piv = torch.empty(nb, dtype=store.dtype, device="cuda")
+    inv = ({k: torch.empty((nb, cs, cs), dtype=store.dtype, device="cuda")
+            for k in ("linv", "uinv")} if inverses else {})
+    return _graph_ms(lambda: lu_tile(store, diag, piv=piv, **inv),
+                     setup=lambda: store.index_copy_(0, rows, tiles0))
 
 
 def _nbytes(*ts) -> int:
@@ -535,6 +560,28 @@ def _elim_products(store, linv, uinv, sched, mm):
     return store
 
 
+def _lu_tile_pairs(rng, tdt, cs):
+    """(kernel, plain) pairs of every output of ``lu_tile`` on seeded
+    diagonally dominant tiles (3 of a bank of 7, in place), with both
+    inverses and then the LU alone."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.lu_tile import lu_tile, lu_tile_plain
+
+    tiles = torch.as_tensor(rng.standard_normal((7, cs, cs)) + cs * np.eye(cs),
+                            dtype=tdt, device="cuda")
+    ids = torch.as_tensor(np.array([5, 0, 3], np.int32), device="cuda")
+    for inverses in (True, False):
+        outs = []
+        for fn in (lu_tile, lu_tile_plain):
+            t = tiles.clone()
+            inv = ({k: torch.zeros((3, cs, cs), dtype=tdt, device="cuda")
+                    for k in ("linv", "uinv")} if inverses else {})
+            p = fn(t, ids, **inv)
+            outs.append((t, p, *inv.values()))
+        yield from zip(*outs)
+
+
 def phase_refactor_kernels_vs_plain():
     """Returns the max abs differences on the headline's real store
     (float32) and the worst relative differences."""
@@ -578,21 +625,11 @@ def phase_refactor_kernels_vs_plain():
             if not torch.equal(got, span_gather_plain(a, *gl, cs)):
                 raise AssertionError(f"span_gather differs from plain "
                                      f"({dt}, cs={cs})")
-            # tile LU of diagonally dominant tiles, in place, with inverses
-            N = 7
-            tiles = torch.as_tensor(
-                rng.standard_normal((N, cs, cs)) + cs * np.eye(cs),
-                dtype=tdt, device="cuda")
-            ids = torch.as_tensor(np.array([5, 0, 3], np.int32),
-                                  device="cuda")
-            outs = []
-            for fn in (lu_tile, lu_tile_plain):
-                t = tiles.clone()
-                li = torch.zeros((3, cs, cs), dtype=tdt, device="cuda")
-                ui = torch.zeros_like(li)
-                p = fn(t, ids, linv=li, uinv=ui)
-                outs.append((t, p, li, ui))
-            for got, ref in zip(outs[0], outs[1]):
+        # tile LU of diagonally dominant tiles, in place, with inverses and
+        # alone: one partial panel of 32 columns (16), ragged last panels
+        # (45, 100) and whole ones (128)
+        for cs in LU_SIZES:
+            for got, ref in _lu_tile_pairs(rng, tdt, cs):
                 note("lu_tile", dt, got, ref, LU_TOL)
         # tile products: in place on a (whole rows), in place on b (whole
         # columns) and Schur-like (any split), overwrite and subtract,
@@ -650,19 +687,23 @@ def phase_refactor_kernels_vs_plain():
             if not (torch.equal(sk, sp_) and torch.equal(rk, rp_)):
                 raise AssertionError(f"{name} {dt}: assembly with the span "
                                      f"kernel differs from plain")
-            # the first level's diagonal tiles alone through lu_tile
+            # the first level's diagonal tiles alone through lu_tile, with
+            # both inverses, then the LU alone
             lvl0 = F._refactor_dev.elim.levels[0]
-            lu_out = []
-            for fn in (lu_tile, lu_tile_plain):
-                t = sp_.clone()
-                nb = lvl0.diag.shape[0]
-                li = torch.zeros((nb,) + tuple(t.shape[1:]), dtype=t.dtype,
-                                 device="cuda")
-                ui = torch.zeros_like(li)
-                p = fn(t, lvl0.diag, linv=li, uinv=ui)
-                lu_out.append((t[lvl0.diag.long()], p, li, ui))
-            for got, ref in zip(lu_out[0], lu_out[1]):
-                note("lu_tile", dt, got, ref, LU_TOL)
+            nb = lvl0.diag.shape[0]
+            for inverses in (True, False):
+                outs = []
+                for fn in (lu_tile, lu_tile_plain):
+                    t = sp_.clone()
+                    inv = ({k: torch.zeros((nb,) + tuple(t.shape[1:]),
+                                           dtype=t.dtype, device="cuda")
+                            for k in ("linv", "uinv")} if inverses else {})
+                    p = fn(t, lvl0.diag, **inv)
+                    outs.append((t[lvl0.diag.long()], p, *inv.values()))
+                for got, ref in zip(outs[0], outs[1]):
+                    note("lu_tile", dt, got, ref, LU_TOL)
+                if inverses:
+                    lu_out = outs
             # the whole elimination
             ek = eliminate(sp_.clone(), F._refactor_dev.elim)
             ep = eliminate(sp_.clone(), F._refactor_dev.elim, plain=True)
@@ -929,9 +970,13 @@ def phase_refactor_timing(A2c, F2c, step, smi):
         lambda _: torch.linalg.lu_factor_ex(tiles0, pivot=False), reps=30)
     ms["lu_tile_library_inv"] = _median_ms(lambda _: lu_and_inverses(),
                                            reps=30)
-    ms["lu_tile_device"] = _graph_ms(
-        lambda: lu_tile(store, lvl0.diag, linv=li, uinv=ui),
-        setup=lambda: store.index_copy_(0, lvl0.diag.long(), tiles0))
+    ms["lu_tile_device"] = _lu_tile_ms(store, lvl0.diag, True)
+    ms["lu_tile_device_lu"] = _lu_tile_ms(store, lvl0.diag, False)
+    # config 2's level 0: the one-tile launch its elimination pays per level
+    store2, _ = _real_store(F2c, A2c, plain=True)
+    diag2 = F2c._refactor_dev.elim.levels[0].diag
+    ms["lu_tile_config2_device"] = _lu_tile_ms(store2, diag2, True)
+    ms["lu_tile_config2_device_lu"] = _lu_tile_ms(store2, diag2, False)
     print(f"phase 9 library calls on {smi} (CUDA-graph replay, TF32 off): "
           f"span_gather kernel {ms['span_gather_device']:.4f} ms vs "
           f"index_select {ms['span_gather_library']:.4f} ms; lu_tile on the "
@@ -939,7 +984,11 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"{ms['lu_tile_device']:.4f} ms vs lu_factor_ex(pivot=False) "
           f"{ms['lu_tile_library']:.4f} ms (the LU alone; eager CUDA events,"
           f" it cannot be captured), with two solve_triangular against I "
-          f"{ms['lu_tile_library_inv']:.4f} ms")
+          f"{ms['lu_tile_library_inv']:.4f} ms; lu_tile LU alone "
+          f"{ms['lu_tile_device_lu']:.4f} ms; config 2's level 0 "
+          f"({diag2.shape[0]} tile) with inverses "
+          f"{ms['lu_tile_config2_device']:.4f} ms, LU alone "
+          f"{ms['lu_tile_config2_device_lu']:.4f} ms")
     return ms
 
 
@@ -1004,6 +1053,8 @@ def _refactor_device_times(deployments, ms, smi):
             lambda: refactor_pipeline(a, dev), reps=20)
     r = {n: out[f"tile_mm_{n}_device"] / out[f"tile_mm_{n}_library"]
          for n in shapes}
+    lu_sum = {n: out[f"elimination_{n}_graph"] - out[f"tile_mm_{n}_device"]
+              for n in shapes}
     gflop = WORK["tile_mm"][1] / 1e9
     print(f"phase 9 tile products on {smi} (CUDA-graph replay; "
           f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -1021,7 +1072,10 @@ def _refactor_device_times(deployments, ms, smi):
           f"{ms['config2_step'] / out['tile_mm_config2_library']:.2f}; "
           f"whole elimination graph replay headline "
           f"{out['elimination_headline_graph']:.4f} ms, config 2 "
-          f"{out['elimination_config2_graph']:.4f} ms; "
+          f"{out['elimination_config2_graph']:.4f} ms, of which lu_tile "
+          f"(the elimination less its tile products: every lu_tile launch, "
+          f"two zero-fills and a min) "
+          f"{lu_sum['headline']:.4f} ms and {lu_sum['config2']:.4f} ms; "
           f"refactor_numeric pipeline graph replay headline "
           f"{out['refactor_headline_graph']:.4f} ms (eager "
           f"{ms['refactor_headline']:.4f}), config 2 "

@@ -277,12 +277,14 @@ def test_span_gather_plain_semantics(rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cs", [16, 128])
+@pytest.mark.parametrize("cs", [16, 45, 100, 128])
 def test_lu_tile_plain_matches_jax(rng, cs):
     """Plain tile LU against JAX ``lu_tile`` in interpret mode and
     ``_lu_nopivot`` on diagonally dominant tiles (no-pivot LU is stable),
-    at the JAX bound between its two (tests/test_refactor.py:273)."""
-    batch = 3 if cs == 16 else 2
+    at the JAX bound between its two (tests/test_refactor.py:273). The
+    sizes are those the card holds the CUDA kernel to: one partial panel
+    of 32 columns (16), ragged last panels (45, 100) and whole ones."""
+    batch = 3 if cs < 32 else 2
     D = rng.standard_normal((batch, cs, cs)) + cs * np.eye(cs)
     D32 = D.astype(np.float32)
     got = lu_nopivot(torch.as_tensor(D32)).numpy()
