@@ -11,17 +11,26 @@ Phases, one line of output each; any failure raises and exits non-zero:
    seeded random inputs at cs in {16, 128} and R in {1, 16, 64} in float32
    and float64, then the real waves of the headline plan (bound: max
    relative difference 1e-5 in float32, 1e-12 in float64 — summation order
-   differs, no TF32 on either side);
+   differs, no TF32 on either side); then the one-launch solve
+   ``ldiv_fused`` on the headline's real schedule, float32, float64 and
+   bfloat16 tiles, R in {1, 3, 16, 64}: bit for bit equal to the 32-launch
+   route (``perm_gather``, the waves, ``perm_gather``) at grid sizes 1, 7
+   and the default, within ``TOL`` of the plain route, and 30 CUDA-graph
+   replays at R = 16, a fresh ``b`` copied in before each, each bit for
+   bit equal to the eager solve of that ``b``;
 3. the host-factorization path on the headline deployment (2D Poisson
    100x100, n=10,000, chunk_size=128, ordering="nd", nd_cutoff=512,
    float32): construct, then ``ldiv`` at R = 16, 1 and 64 and once with
    ``refine_steps=1``, checked by the normwise backward error in float64
-   on the host (< 1e-3 direct, < 5e-6 refined), with both ldiv kernels
-   launched;
+   on the host (< 1e-3 direct, < 5e-6 refined), each direct solve one
+   ``ldiv_fused`` launch and no ``perm_gather`` or ``wave_apply``; then
+   ``lsolve``/``rsolve`` (the waves) and the 32-launch route (bit for bit
+   equal to the one-launch solve);
 4. the host lifecycle: ``refactor`` with new values then ``ldiv``, and a
    float64 solver held to 1e-9 of scipy's ``spsolve``;
-5. the median ``ldiv`` time at R = 16 (CUDA events), kernels against the
-   plain PyTorch path on the same CUDA tensors;
+5. the median ``ldiv`` time at R = 16, the one-launch solve against the
+   32-launch route, eager (CUDA events) and by CUDA-graph replay, and
+   against the plain PyTorch path on the same CUDA tensors;
 6. the refactorization kernels against their plain versions: span gather
    (B4, bit for bit) at cs in {16, 128}, tile LU (B2) with both inverses
    and alone at cs in {16, 45, 100, 128} and the elimination's tile
@@ -36,7 +45,8 @@ Phases, one line of output each; any failure raises and exits non-zero:
    bars as phase 3), ``refactor_numeric`` with seeded same-pattern values
    then ``ldiv``, ``refactor_numeric(check=True)`` on benign values, and a
    float64 device-factorized solver held to 1e-9 of ``spsolve`` after
-   ``refactor_numeric``; every kernel launched;
+   ``refactor_numeric``; every kernel launched, and every solve one
+   ``ldiv_fused`` launch;
 8. BASELINE config 2's fused step at full size: ``make_refactor_solve_step``
    at R = 8 on ``1.01 * A``, backward error < 1e-3 (the gate of
    ``bench.py:261-270``);
@@ -67,24 +77,28 @@ Phases, one line of output each; any failure raises and exits non-zero:
     cleared, the waves serve), each followed by a checked ``ldiv``;
 12. the f64 tier on the headline: float32 ``make_f64_ldiv`` within 1e-12
     of ``spsolve`` in <= 2 sweeps; ``stream_dtype="bfloat16"`` with a
-    direct error in (1e-6, 3e-2), through ``wave_apply_bf16`` only, and
-    within 1e-12 after at most 8 sweeps (``BF16_SWEEPS``); after
+    direct error in (1e-6, 3e-2), one ``ldiv_fused_bf16`` launch per
+    solve, within 1e-12 after at most 8 sweeps (``BF16_SWEEPS``), and
+    the 32-launch route through ``wave_apply_bf16`` bit for bit equal to
+    it; after
     ``refactor_numeric`` (values scaled by 1 + 0.2 U(0, 1)) a fresh
     callable within 1e-12 of the new matrix's ``spsolve`` in <= 3 sweeps
     and the old one refused;
 13. timing (CUDA events, medians): config 1's ``ldiv`` at R = 1 and 16
     through the chain kernel, its plain scan and the tile waves;
     ``bidiag_ldiv`` at n = 1,048,577; the headline ``ldiv`` at R = 16 with
-    the bfloat16 stream against float32, its waves against their plain
-    version; and ``make_f64_ldiv`` at R = 16 with the fewest sweeps that
-    meet 1e-12, float32 and bfloat16 streams.
+    the bfloat16 stream against float32 (one launch each, eager and by
+    graph replay, and the 32-launch route beside them), its waves against
+    their plain version; and ``make_f64_ldiv`` at R = 16 with the fewest
+    sweeps that meet 1e-12, float32 and bfloat16 streams.
 
 Then one JSON line on the kernels (each with its time, its bound from
 this run's bytes and FLOP against the card's published peaks, and its
 library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
-``--phases 6,9`` runs phase 1 and only those of phases 6-9, with no
-result line (for iterating on the refactorization kernels).
+``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-13, with
+no result line (for iterating on one kernel: 2,3,5 for the ldiv kernels,
+6,9 for the refactorization kernels).
 """
 
 import json
@@ -126,7 +140,16 @@ KERNELS = {
                         "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
     "bidiag_ldiv": ("tpu_sparse_lu_torch/csrc/bidiag.cu",
                     "tpu_sparse_lu/ops/scan_solve.py:181"),
+    "ldiv_fused": ("tpu_sparse_lu_torch/csrc/ldiv_fused.cu",
+                   "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
+    "ldiv_fused_bf16": ("tpu_sparse_lu_torch/csrc/ldiv_fused.cu",
+                        "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
 }
+# R of the one-launch solve's checks, and its grid sizes (None: as many
+# blocks as the card holds at once)
+FUSED_RS = (1, 3, 16, 64)
+FUSED_GRIDS = (1, 7, None)
+GRAPH_REPLAYS = 30
 # BASELINE config 1 (bench.py:225-241): the 1-D chain, single RHS
 CONFIG1 = dict(n=20000, chunk_size=128)
 CHAIN_NS = (7, 128, 257, 5000, 20000, 1_048_577)
@@ -165,12 +188,12 @@ def _median_ms(fn, reps=50, warmup=5, setup=lambda: None) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in marks]))
 
 
-def _graph_ms(fn, reps=30, setup=lambda: None) -> float:
-    """Median device time of ``fn``'s launches, captured once in a CUDA
-    graph and replayed (CUDA events around each replay): no host launch
-    cost. ``setup`` runs before each replay, outside the events and the
-    graph. Warm-up runs on a side stream first, so one-time work
-    (library handles, workspaces) stays out of the capture."""
+def _capture(fn, setup=lambda: None):
+    """``fn`` captured once in a CUDA graph; returns the graph and what
+    the captured call returned (each replay rewrites it). Warm-up runs
+    first on the stream that is then captured, so one-time work (library
+    handles, workspaces, the one-launch solve's per-stream ready flags)
+    stays out of the capture."""
     import torch
 
     side = torch.cuda.Stream()
@@ -182,8 +205,17 @@ def _graph_ms(fn, reps=30, setup=lambda: None) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     setup()
-    with torch.cuda.graph(graph):
-        fn()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    return graph, out
+
+
+def _graph_ms(fn, reps=30, setup=lambda: None) -> float:
+    """Median device time of ``fn``'s launches, captured once in a CUDA
+    graph and replayed (CUDA events around each replay): no host launch
+    cost. ``setup`` runs before each replay, outside the events and the
+    graph."""
+    graph, _ = _capture(fn, setup)
     return _median_ms(lambda _: graph.replay(), reps=reps, warmup=3,
                       setup=setup)
 
@@ -232,6 +264,8 @@ LIBRARY = {
                "not timed",
     "wave_apply_bf16": "none: a gather-product-scatter per wave",
     "bidiag_ldiv": "none: two affine prefix scans",
+    "ldiv_fused": "none: the whole solve in one launch",
+    "ldiv_fused_bf16": "none: the whole solve in one launch",
 }
 
 
@@ -269,6 +303,46 @@ def _headline_solver(dtype: str, stream_dtype: str = "float32"):
                        nd_cutoff=HEADLINE["nd_cutoff"], dtype=dtype,
                        stream_dtype=stream_dtype)
     return A, ParallelSparseLU(A, config=cfg, device="cuda")
+
+
+def _fused(F, b, grid=None):
+    """One launch of the one-launch solve on F's schedule and tile stream
+    (what ``F.ldiv`` runs), at a given grid size."""
+    from tpu_sparse_lu_torch.ops.fused_ldiv import fused_ldiv, fused_ldiv_bf16
+
+    L, U = F.ldata, F.udata
+    if L.tiles_bf16 is not None:
+        return fused_ldiv_bf16(b, F._ldiv_sched, L.tiles_bf16, U.tiles_bf16,
+                               F._rs, grid=grid)
+    return fused_ldiv(b, F._ldiv_sched, L.tiles_t, U.tiles_t, F._rs,
+                      grid=grid)
+
+
+def _route32(F, b):
+    """The 32-launch route on F's data and tile stream: ``perm_gather``
+    (perm-in with Rs), the L and U waves of ``blocked_tri_solve``,
+    ``perm_gather`` (perm-out). No entry point runs it since the one-launch
+    solve; it is the yardstick that solve is held to, bit for bit."""
+    from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather
+    from tpu_sparse_lu_torch.solve import blocked_tri_solve
+
+    R = b.shape[1]
+    xw = perm_gather(b, F._pidx, F._rs).view(F.plan.lplan.K + 1, F.plan.cs,
+                                             R)
+    blocked_tri_solve(F.ldata, xw, stream=True)
+    blocked_tri_solve(F.udata, xw, stream=True)
+    return perm_gather(xw.view(-1, R), F._qidx)
+
+
+def _fused_work(F, b):
+    """(bytes, FLOP) of one solve: every tile of the stream read once, b
+    read and y written once, the carrier written and read once; 2 R FLOP
+    per tile element."""
+    banks = [d.tiles_t if d.tiles_bf16 is None else d.tiles_bf16
+             for d in (F.ldata, F.udata)]
+    carrier = (F.plan.lplan.K + 1) * F.plan.cs * b.shape[1] * b.element_size()
+    return (_nbytes(*banks) + 2 * _nbytes(b) + 2 * carrier,
+            2 * b.shape[1] * sum(t.numel() for t in banks))
 
 
 def phase_device():
@@ -383,49 +457,133 @@ def phase_kernels_vs_plain():
           f"(bound 1e-12); headline {n_waves} waves + 2 perms f32 "
           f"{rel_real:.3e}, max abs perm_gather {err['perm_gather']:.3e} "
           f"wave_apply {err['wave_apply']:.3e}")
+    err.update(_phase_fused_vs_route32())
+    return err
+
+
+def _phase_fused_vs_route32():
+    """The one-launch solve against the 32-launch route (bit for bit) and
+    the plain route (``TOL``) at the headline; returns its max abs
+    difference from the plain route at R = 16, float32 stream and bf16
+    stream."""
+    import torch
+
+    rng = np.random.default_rng(20)
+    err, worst, n_graph = {}, {}, 0
+    for name, dt, stream in (("ldiv_fused", "float32", "float32"),
+                             ("ldiv_fused", "float64", "float32"),
+                             ("ldiv_fused_bf16", "float32", "bfloat16")):
+        A, F = _headline_solver(dt, stream)
+        n, tag = A.shape[0], f"{name} {dt}/{stream}"
+        for R in FUSED_RS:
+            b = torch.as_tensor(rng.standard_normal((n, R)), dtype=F.dtype,
+                                device="cuda")
+            ref = _route32(F, b)
+            for grid in FUSED_GRIDS:
+                got = _fused(F, b, grid)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"{tag} R={R} grid={grid}: differs from the "
+                        f"32-launch route by "
+                        f"{float((got - ref).abs().max()):.3e}")
+            plain = F._direct_solve(b, plain=True)
+            r = _rel(got, plain)
+            if not r <= TOL[dt]:
+                raise AssertionError(f"{tag} R={R}: differs from the plain "
+                                     f"route by {r:.3e} > {TOL[dt]:g}")
+            worst[tag] = max(worst.get(tag, 0.0), r)
+            if R == HEADLINE["R"] and dt == "float32":
+                err[name] = float((got - plain).abs().max())
+        # graph replays: the ready flags must read fresh in every replay
+        R = HEADLINE["R"]
+        sb = torch.zeros((n, R), dtype=F.dtype, device="cuda")
+        graph, out = _capture(lambda: _fused(F, sb))
+        for _ in range(GRAPH_REPLAYS):
+            bi = torch.as_tensor(rng.standard_normal((n, R)), dtype=F.dtype,
+                                 device="cuda")
+            sb.copy_(bi)
+            graph.replay()
+            if not torch.equal(out, _fused(F, bi)):
+                raise AssertionError(f"{tag}: a graph replay differs from "
+                                     f"the eager solve")
+            n_graph += 1
+        del F
+    torch.cuda.synchronize()
+    print(f"phase 2 ldiv_fused vs the 32-launch route: bit for bit at R in "
+          f"{list(FUSED_RS)}, grids {list(FUSED_GRIDS)} (None: resident "
+          f"capacity), {n_graph} graph replays bit for bit with eager; max "
+          f"rel diff from the plain route "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (bounds {TOL['float32']:g}/{TOL['float64']:g}); max abs at "
+          f"R={HEADLINE['R']} f32 {err['ldiv_fused']:.3e}, bf16 stream "
+          f"{err['ldiv_fused_bf16']:.3e}")
     return err
 
 
 def phase_main_path():
     import torch
 
-    from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather, wave_apply
-
     rng = np.random.default_rng(1)
     t0 = time.perf_counter()
     A, F = _headline_solver("float32")
     build_s = time.perf_counter() - t0
-    perm_gather.LAUNCHES = 0
-    wave_apply.LAUNCHES = 0
+    read = _reset_launches("ldiv_fused", "perm_gather", "wave_apply")
+
+    def launched(fn):
+        before = read()
+        out = fn()
+        return out, {k: v - before[k] for k, v in read().items()}
+
     berr = {}
     for R, steps in ((16, 0), (1, 0), (64, 0), (16, 1)):
         shape = (A.shape[0],) if R == 1 else (A.shape[0], R)
         b = rng.random(shape).astype(np.float32)
-        x = F.ldiv(b, refine_steps=steps)
+        x, d = launched(lambda: F.ldiv(b, refine_steps=steps))
+        if d != {"ldiv_fused": 1 + steps, "perm_gather": 0, "wave_apply": 0}:
+            raise AssertionError(f"ldiv at R={R} refine_steps={steps} "
+                                 f"launched {d}")
         if x.device.type != "cuda" or x.shape != shape:
             raise AssertionError(f"ldiv result {x.shape} on {x.device}")
         x = x.cpu().numpy()
         if not np.isfinite(x).all():
             raise AssertionError("ldiv result is not finite")
         berr[(R, steps)] = _backward_error(A, x, b)
-    torch.cuda.synchronize()
-    launches = {"perm_gather": perm_gather.LAUNCHES,
-                "wave_apply": wave_apply.LAUNCHES}
     for (R, steps), e in berr.items():
         bar = 1e-3 if steps == 0 else 5e-6
         if not e < bar:
             raise AssertionError(f"backward error {e:.3e} >= {bar:g} at R={R} "
                                  f"refine_steps={steps}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"main path did not launch every kernel: "
-                             f"{launches}")
+    # lsolve/rsolve run the waves; the 32-launch route is the yardstick
+    n_waves = len(F.ldata.waves) + len(F.udata.waves)
+    bt = rng.random((F.n_factor, 4)).astype(np.float32)
+    tri = {}
+    for name, M, fn in (("lsolve", F.L, F.lsolve), ("rsolve", F.U, F.rsolve)):
+        y, d = launched(lambda: fn(bt))
+        if d["wave_apply"] == 0 or d["ldiv_fused"] != 0:
+            raise AssertionError(f"{name} launched {d}")
+        tri[name] = _backward_error(M, y.cpu().numpy(), bt)
+        if not tri[name] < 1e-3:
+            raise AssertionError(f"{name} backward error {tri[name]:.3e}")
+    b = torch.as_tensor(rng.random((A.shape[0], HEADLINE["R"])),
+                        dtype=torch.float32, device="cuda")
+    xs, d = launched(lambda: _route32(F, b))
+    if d != {"ldiv_fused": 0, "perm_gather": 2, "wave_apply": n_waves}:
+        raise AssertionError(f"the 32-launch route launched {d}")
+    if not torch.equal(xs, F.ldiv(b)):
+        raise AssertionError("the 32-launch route differs from ldiv")
+    torch.cuda.synchronize()
+    launches = read()
     print(f"phase 3 main path: n={F.n} n_factor={F.n_factor} "
           f"nnz(L+U)={F.L.nnz + F.U.nnz} K={F.plan.lplan.K} "
           f"T={F.plan.lplan.T}/{F.plan.uplan.T} levels="
           f"{F.plan.lplan.num_levels}/{F.plan.uplan.num_levels}, built in "
-          f"{build_s:.2f} s; backward error R=16 {berr[16, 0]:.3e}, R=1 "
-          f"{berr[1, 0]:.3e}, R=64 {berr[64, 0]:.3e}, R=16 refined "
-          f"{berr[16, 1]:.3e}; launches {launches}")
+          f"{build_s:.2f} s; tasks {F._ldiv_sched.n_tasks}, dependencies "
+          f"{F._ldiv_sched.dep.size}; backward error R=16 {berr[16, 0]:.3e}, "
+          f"R=1 {berr[1, 0]:.3e}, R=64 {berr[64, 0]:.3e}, R=16 refined "
+          f"{berr[16, 1]:.3e}, one ldiv_fused launch per solve and no wave; "
+          f"lsolve {tri['lsolve']:.3e}, rsolve {tri['rsolve']:.3e} through "
+          f"the waves; the 32-launch route ({n_waves} waves + 2 perms) bit "
+          f"for bit equal; launches {launches}")
     return A, F, launches
 
 
@@ -470,10 +628,20 @@ def phase_timing(F, smi):
     R = HEADLINE["R"]
     b = torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype, device="cuda")
     shape = (F.plan.lplan.K + 1, F.plan.cs, R)
-    ms = {
-        "ldiv": _median_ms(lambda _: F._direct_solve(b)),
-        "ldiv_plain": _median_ms(lambda _: F._direct_solve(b, plain=True)),
-    }
+    routes = {"ldiv_fused": lambda: F._direct_solve(b),
+              "ldiv_route32": lambda: _route32(F, b)}
+    turns = {k: [] for k in routes}
+    for order in (list(routes), list(routes)[::-1]):  # in turns
+        for k in order:
+            turns[k].append((_median_ms(lambda _: routes[k]()),
+                             _graph_ms(routes[k])))
+    ms = {}
+    for k, t in turns.items():
+        ms[k] = float(np.mean([e for e, _ in t]))
+        ms[k + "_device"] = float(np.mean([g for _, g in t]))
+    ms["ldiv"] = ms["ldiv_fused"]
+    ms["ldiv_plain"] = ms["ldiv_fused_plain"] = _median_ms(
+        lambda _: F._direct_solve(b, plain=True))
     for name, fn in (("perm_gather", perm_gather),
                      ("perm_gather_plain", perm_gather_plain)):
         # perm-in and perm-out of one solve
@@ -495,11 +663,15 @@ def phase_timing(F, smi):
     tiles = [d.tiles_t for d in (F.ldata, F.udata)]
     WORK["wave_apply"] = (_nbytes(*tiles) + 2 * x_bytes,
                           2 * R * sum(t.numel() for t in tiles))
-    print(f"phase 5 timing on {smi}: median ldiv R={R} kernels "
-          f"{ms['ldiv']:.4f} ms, plain torch {ms['ldiv_plain']:.4f} ms; "
-          f"perm-in+out {ms['perm_gather']:.4f} / "
-          f"{ms['perm_gather_plain']:.4f} ms; L+U waves "
-          f"{ms['wave_apply']:.4f} / {ms['wave_apply_plain']:.4f} ms")
+    WORK["ldiv_fused"] = _fused_work(F, b)
+    fmt = lambda k: ", ".join(f"{e:.4f} / {g:.4f}" for e, g in turns[k])
+    print(f"phase 5 timing on {smi}: ldiv R={R} per solve, eager / graph "
+          f"replay ms, two turns: one launch (ldiv_fused) {fmt('ldiv_fused')}"
+          f"; 32-launch route {fmt('ldiv_route32')}; plain torch "
+          f"{ms['ldiv_plain']:.4f} ms eager; perm-in+out "
+          f"{ms['perm_gather']:.4f} / {ms['perm_gather_plain']:.4f} ms; L+U "
+          f"waves {ms['wave_apply']:.4f} / {ms['wave_apply_plain']:.4f} ms "
+          f"(kernels / plain, eager)")
     return ms
 
 def _config2_solver(dtype: str = "float32"):
@@ -744,7 +916,7 @@ def _reset_launches(*names):
     from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
-        perm_gather, wave_apply, wave_apply_bf16,
+        fused_ldiv, fused_ldiv_bf16, perm_gather, wave_apply, wave_apply_bf16,
     )
     from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
     from tpu_sparse_lu_torch.ops.span_gather import span_gather
@@ -752,7 +924,8 @@ def _reset_launches(*names):
     fns = {"perm_gather": perm_gather, "wave_apply": wave_apply,
            "span_gather": span_gather, "lu_tile": lu_tile,
            "tile_mm": tile_mm, "wave_apply_bf16": wave_apply_bf16,
-           "bidiag_ldiv": bidiag_ldiv}
+           "bidiag_ldiv": bidiag_ldiv, "ldiv_fused": fused_ldiv,
+           "ldiv_fused_bf16": fused_ldiv_bf16}
     for f in fns.values():
         f.LAUNCHES = 0
     return lambda: {k: fns[k].LAUNCHES for k in names}
@@ -764,8 +937,8 @@ def phase_device_lifecycle():
 
     rng = np.random.default_rng(5)
     R = HEADLINE["R"]
-    read = _reset_launches("perm_gather", "wave_apply", "span_gather",
-                           "lu_tile", "tile_mm")
+    read = _reset_launches("ldiv_fused", "span_gather", "lu_tile", "tile_mm",
+                           "perm_gather", "wave_apply")
     t0 = time.perf_counter()
     A, F = _device_headline("float32")
     torch.cuda.synchronize()
@@ -794,6 +967,14 @@ def phase_device_lifecycle():
     A2 = _same_pattern(rng, A)
     F.refactor_numeric(A2)
     e1 = solve_checked(A2, "refactor_numeric")
+    # the fused step of a time-stepper: refactorization + refined solve
+    A4 = _same_pattern(rng, A)
+    b = rng.random((A.shape[0], R)).astype(np.float32)
+    x = F.make_refactor_solve_step(refine_steps=1)(A4.data, b)
+    e_step = _backward_error(A4, x.cpu().numpy(), b)
+    if not e_step < 5e-6:
+        raise AssertionError(f"refactor-solve step backward error "
+                             f"{e_step:.3e}")
     kept = F.refactor_numeric(_same_pattern(rng, A), check=True)
     if kept is not True:
         raise AssertionError("refactor_numeric(check=True) fell back on "
@@ -801,9 +982,13 @@ def phase_device_lifecycle():
     d = {k: float(v) for k, v in F.refactor_diagnostics.items()}
     torch.cuda.synchronize()
     launches = read()
-    if min(launches.values()) == 0:
+    # four checked ldiv calls (two refined) and the refined step: 8 solves
+    waves = {k: launches.pop(k) for k in ("perm_gather", "wave_apply")}
+    if (min(launches.values()) == 0 or launches["ldiv_fused"] != 8
+            or any(waves.values())):
         raise AssertionError(f"device lifecycle did not launch every "
-                             f"kernel: {launches}")
+                             f"kernel, or not one ldiv_fused per solve: "
+                             f"{launches}, {waves}")
     _, F64 = _device_headline("float64")
     A3 = _same_pattern(rng, A)
     F64.refactor_numeric(A3)
@@ -820,7 +1005,8 @@ def phase_device_lifecycle():
           f"{build_s:.2f} s (TF={F._refactor_plan.TF} levels="
           f"{F._refactor_plan.NL}); backward error R={R} {e0[0]:.3e}, "
           f"refined {e0[1]:.3e}; after refactor_numeric {e1[0]:.3e}, "
-          f"refined {e1[1]:.3e}; check=True kept (min pivot "
+          f"refined {e1[1]:.3e}; refactor-solve step refined "
+          f"{e_step:.3e}; check=True kept (min pivot "
           f"{d['min_pivot']:.3e}, growth {d['growth']:.3e}); float64 after "
           f"refactor_numeric rel err vs spsolve {rel:.3e} (bar 1e-9); "
           f"launches {launches}")
@@ -831,8 +1017,8 @@ def phase_config2_step():
     import torch
 
     rng = np.random.default_rng(6)
-    read = _reset_launches("perm_gather", "wave_apply", "span_gather",
-                           "lu_tile", "tile_mm")
+    read = _reset_launches("ldiv_fused", "span_gather", "lu_tile", "tile_mm",
+                           "perm_gather", "wave_apply")
     A, F = _config2_solver()
     step = F.make_refactor_solve_step()
     A_chk = A.copy()
@@ -854,6 +1040,9 @@ def phase_config2_step():
                              f"(per column max {e:.3e})")
     torch.cuda.synchronize()
     launches = read()
+    if (launches["ldiv_fused"], launches["perm_gather"],
+            launches["wave_apply"]) != (1, 0, 0):
+        raise AssertionError(f"config-2 step launched {launches}")
     rp = F._refactor_plan
     print(f"phase 8 config 2 fused step: n={A.shape[0]} nnz={A.nnz} "
           f"TF={rp.TF} levels={rp.NL}, R={CONFIG2['R']} on 1.01*A: "
@@ -1203,7 +1392,7 @@ def phase_config1():
     import torch
 
     from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
-    from tpu_sparse_lu_torch.ops.fused_ldiv import wave_apply
+    from tpu_sparse_lu_torch.ops.fused_ldiv import fused_ldiv, wave_apply
 
     rng = np.random.default_rng(11)
     read = _reset_launches("bidiag_ldiv", "wave_apply", "perm_gather")
@@ -1217,14 +1406,15 @@ def phase_config1():
     def solve_checked(M, tag, R, chain=True):
         shape = (M.shape[0],) if R == 1 else (M.shape[0], R)
         b = rng.random(shape).astype(np.float32)
-        before = (bidiag_ldiv.LAUNCHES, wave_apply.LAUNCHES)
+        fns = (bidiag_ldiv, wave_apply, fused_ldiv)
+        before = [f.LAUNCHES for f in fns]
         x = F.ldiv(b)
         torch.cuda.synchronize()
-        after = (bidiag_ldiv.LAUNCHES, wave_apply.LAUNCHES)
-        if chain and (after[0] - before[0], after[1] - before[1]) != (1, 0):
-            raise AssertionError(f"{tag}: ldiv at R={R} launched "
-                                 f"{after[0] - before[0]} bidiag_ldiv and "
-                                 f"{after[1] - before[1]} waves")
+        d = tuple(f.LAUNCHES - n for f, n in zip(fns, before))
+        if d != ((1, 0, 0) if chain else (0, 0, 1)):
+            raise AssertionError(f"{tag}: ldiv at R={R} launched {d[0]} "
+                                 f"bidiag_ldiv, {d[1]} waves and {d[2]} "
+                                 f"ldiv_fused")
         if x.device.type != "cuda" or x.shape != shape:
             raise AssertionError(f"{tag}: ldiv result {x.shape} on "
                                  f"{x.device}")
@@ -1275,7 +1465,8 @@ def phase_config1():
           f"bidiag_ldiv and no wave per ldiv; float64 chain rel err vs "
           f"spsolve {rel64:.3e} (bar 1e-10); host refactor -> bands "
           f"re-detected, backward error {e_ref:.3e}; refactor_numeric -> "
-          f"bands cleared, waves serve, backward error {e_num:.3e}; "
+          f"bands cleared, one ldiv_fused launch serves, backward error "
+          f"{e_num:.3e}; "
           f"launches {launches}")
     return {"bidiag_ldiv": launches["bidiag_ldiv"]}
 
@@ -1294,23 +1485,42 @@ def phase_f64_tier():
     A, F = _headline_solver("float32")
     b = rng.random((A.shape[0], R))
     xs = spla.spsolve(A.tocsc(), b)
+    names = ("ldiv_fused", "ldiv_fused_bf16", "wave_apply_bf16",
+             "wave_apply", "perm_gather")
+    read = _reset_launches(*names)
     f32 = {s: _rel_err(F.make_f64_ldiv(refine_steps=s)(b), xs)
            for s in (1, 2)}
     f32_steps = min((s for s, r in f32.items() if r < 1e-12), default=None)
     if f32_steps is None:
         raise AssertionError(f"f32 make_f64_ldiv misses 1e-12 in 2 sweeps: "
                              f"{f32}")
-    # the bfloat16 stream: only the bf16 waves run
-    read = _reset_launches("wave_apply_bf16", "wave_apply", "perm_gather")
+    # one ldiv_fused launch per direct solve and per sweep
+    launches = read()
+    if launches != dict.fromkeys(names, 0) | {"ldiv_fused": 2 + 3}:
+        raise AssertionError(f"f32 make_f64_ldiv launches {launches}")
+    # the bfloat16 stream: one ldiv_fused_bf16 launch per solve and sweep
+    read = _reset_launches(*names)
     _, Fb = _headline_solver("float32", stream_dtype="bfloat16")
-    x = Fb.ldiv(b.astype(np.float32))
+    b32 = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    x = Fb.ldiv(b32)
     direct = _rel_err(x, xs)
     bf = {s: _rel_err(Fb.make_f64_ldiv(refine_steps=s)(b), xs)
           for s in BF16_SWEEPS}
     torch.cuda.synchronize()
     launches = read()
-    if launches["wave_apply_bf16"] == 0 or launches["wave_apply"] != 0:
+    want = 1 + sum(1 + s for s in BF16_SWEEPS)
+    if launches != dict.fromkeys(names, 0) | {"ldiv_fused_bf16": want}:
         raise AssertionError(f"bf16 stream launches {launches}")
+    # the 32-launch route, through wave_apply_bf16
+    n_waves = len(Fb.ldata.waves) + len(Fb.udata.waves)
+    if not torch.equal(_route32(Fb, b32), x):
+        raise AssertionError("the bf16 32-launch route differs from ldiv")
+    torch.cuda.synchronize()
+    waves = read()
+    if (waves["wave_apply_bf16"] - launches["wave_apply_bf16"] != n_waves
+            or waves["perm_gather"] != 2):
+        raise AssertionError(f"the bf16 32-launch route launches {waves}")
+    launches = waves
     if not 1e-6 < direct < 3e-2:
         raise AssertionError(f"bf16 direct rel err {direct:.3e} outside "
                              f"(1e-6, 3e-2)")
@@ -1349,8 +1559,9 @@ def phase_f64_tier():
           + f" (1e-12 met in {bf_steps}); after refactor_numeric: stale "
           f"callable refused, fresh one vs the new matrix 2 sweeps "
           f"{new[2]:.3e}, 3 sweeps {new[3]:.3e} (1e-12 met in {new_steps}); "
-          f"launches {launches}")
-    return ({"wave_apply_bf16": launches["wave_apply_bf16"]},
+          f"one ldiv_fused(_bf16) launch per solve and sweep; bf16 "
+          f"32-launch route bit for bit equal; launches {launches}")
+    return ({k: launches[k] for k in ("wave_apply_bf16", "ldiv_fused_bf16")},
             f32_steps, bf_steps)
 
 
@@ -1372,10 +1583,12 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
         ms[f"c1_chain_R{R}"] = _median_ms(lambda _: F1._chain_solve(b))
         ms[f"c1_plain_R{R}"] = _median_ms(
             lambda _: F1._chain_solve(b, plain=True), reps=20)
-        ms[f"c1_waves_R{R}"] = _median_ms(lambda _: F1._direct_solve(b),
-                                          reps=10, warmup=2)
-    read = _reset_launches("perm_gather", "wave_apply")
-    F1._direct_solve(b)
+        ms[f"c1_tile_R{R}"] = _median_ms(lambda _: F1._direct_solve(b),
+                                         reps=10, warmup=2)
+        ms[f"c1_route32_R{R}"] = _median_ms(
+            lambda _: _route32(F1, b), reps=5, warmup=1)
+    read = _reset_launches("perm_gather", "wave_apply", "ldiv_fused")
+    _route32(F1, b)
     waves_launches = sum(read().values())
     ms["bidiag_ldiv"], ms["bidiag_ldiv_plain"] = (ms["c1_chain_R1"],
                                                   ms["c1_plain_R1"])
@@ -1396,8 +1609,18 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     _, Fb = _headline_solver("float32", stream_dtype="bfloat16")
     b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=torch.float32,
                         device="cuda")
-    ms["ldiv_f32"] = _median_ms(lambda _: F._direct_solve(b))
-    ms["ldiv_bf16"] = _median_ms(lambda _: Fb._direct_solve(b))
+    for key, Fx in (("f32", F), ("bf16", Fb)):
+        ms[f"ldiv_{key}"] = _median_ms(lambda _: Fx._direct_solve(b))
+        ms[f"ldiv_{key}_route32"] = _median_ms(
+            lambda _: _route32(Fx, b))
+        ms[f"ldiv_{key}_device"] = _graph_ms(lambda: Fx._direct_solve(b))
+        ms[f"ldiv_{key}_route32_device"] = _graph_ms(
+            lambda: _route32(Fx, b))
+    ms["ldiv_fused_bf16"] = ms["ldiv_bf16"]
+    ms["ldiv_fused_bf16_device"] = ms["ldiv_bf16_device"]
+    ms["ldiv_fused_bf16_plain"] = _median_ms(
+        lambda _: Fb._direct_solve(b, plain=True), reps=20)
+    WORK["ldiv_fused_bf16"] = _fused_work(Fb, b)
     shape = (Fb.plan.lplan.K + 1, Fb.plan.cs, R)
     x0 = perm_gather(b, Fb._pidx, Fb._rs).view(shape)
     for name, plain in (("wave_apply_bf16", False),
@@ -1426,15 +1649,23 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
                            4 * F1.n)
     print(f"phase 13 chain + bf16 timing on {smi}: config 1 ldiv R=1 chain "
           f"kernel {ms['c1_chain_R1']:.4f} ms, plain scan "
-          f"{ms['c1_plain_R1']:.4f} ms, tile waves {ms['c1_waves_R1']:.4f} ms"
-          f" ({waves_launches} launches); R=16 {ms['c1_chain_R16']:.4f} / "
-          f"{ms['c1_plain_R16']:.4f} / {ms['c1_waves_R16']:.4f} ms; "
+          f"{ms['c1_plain_R1']:.4f} ms, tile solve in one ldiv_fused launch "
+          f"{ms['c1_tile_R1']:.4f} ms, in {waves_launches} launches "
+          f"{ms['c1_route32_R1']:.4f} ms; R=16 {ms['c1_chain_R16']:.4f} / "
+          f"{ms['c1_plain_R16']:.4f} / {ms['c1_tile_R16']:.4f} / "
+          f"{ms['c1_route32_R16']:.4f} ms; "
           f"bidiag_ldiv n={n} R=1 {ms['big_R1']:.4f} ms (plain "
           f"{ms['big_plain_R1']:.4f}), R=16 {ms['big_R16']:.4f} ms (plain "
-          f"{ms['big_plain_R16']:.4f}); headline ldiv R={R} f32 stream "
-          f"{ms['ldiv_f32']:.4f} ms ({nbytes['f32'] / 1e6:.1f} MB of tiles),"
-          f" bf16 stream {ms['ldiv_bf16']:.4f} ms "
-          f"({nbytes['bf16'] / 1e6:.1f} MB); bf16 L+U waves "
+          f"{ms['big_plain_R16']:.4f}); headline ldiv R={R}, eager / graph "
+          f"replay, one launch and 32 launches: f32 stream "
+          f"{ms['ldiv_f32']:.4f} / {ms['ldiv_f32_device']:.4f} and "
+          f"{ms['ldiv_f32_route32']:.4f} / {ms['ldiv_f32_route32_device']:.4f}"
+          f" ms ({nbytes['f32'] / 1e6:.1f} MB of tiles), bf16 stream "
+          f"{ms['ldiv_bf16']:.4f} / {ms['ldiv_bf16_device']:.4f} and "
+          f"{ms['ldiv_bf16_route32']:.4f} / "
+          f"{ms['ldiv_bf16_route32_device']:.4f} ms "
+          f"({nbytes['bf16'] / 1e6:.1f} MB), bf16 plain "
+          f"{ms['ldiv_fused_bf16_plain']:.4f} ms; bf16 L+U waves "
           f"{ms['wave_apply_bf16']:.4f} / plain "
           f"{ms['wave_apply_bf16_plain']:.4f} ms; make_f64_ldiv R={R} f32 "
           f"stream {f32_steps} sweeps {ms['f64_f32']:.4f} ms, bf16 stream "
@@ -1443,11 +1674,20 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
 
 
 def _some_phases(phases, smi) -> int:
-    """Phases 6-9 alone (9 runs 8 first, for its fused step); prints no
-    result line."""
-    if not phases or not phases <= {6, 7, 8, 9}:
-        raise SystemExit(f"--phases takes a subset of 6,7,8,9, got "
+    """Only the phases named, of 2-13 (4 runs 3 first, 9 runs 8, 13 runs
+    12); prints no result line."""
+    if not phases or not phases <= set(range(2, 14)):
+        raise SystemExit(f"--phases takes a subset of 2-13, got "
                          f"{sorted(phases)}")
+    if 2 in phases:
+        phase_kernels_vs_plain()
+    if phases & {3, 4}:
+        A, F, _ = phase_main_path()
+        if 4 in phases:
+            phase_lifecycle(A, F)
+        del A, F
+    if 5 in phases:
+        phase_timing(_headline_solver("float32")[1], smi)
     if 6 in phases:
         phase_refactor_kernels_vs_plain()
     if 7 in phases:
@@ -1456,6 +1696,15 @@ def _some_phases(phases, smi) -> int:
         A2c, F2c, step = phase_config2_step()
         if 9 in phases:
             phase_refactor_timing(A2c, F2c, step, smi)
+        del A2c, F2c, step
+    if 10 in phases:
+        phase_chain_and_bf16_kernels_vs_plain()
+    if 11 in phases:
+        phase_config1()
+    if phases & {12, 13}:
+        _, f32_steps, bf_steps = phase_f64_tier()
+        if 13 in phases:
+            phase_chain_bf16_timing(smi, f32_steps, bf_steps)
     print(f"chip_smoke: phases {sorted(phases | {1})} passed (a partial run: "
           f"no result line)")
     return 0
@@ -1468,7 +1717,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=None,
-                        help="run only these of phases 6-9 after phase 1, "
+                        help="run only these of phases 2-13 after phase 1, "
                              "comma-separated (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1500,7 +1749,9 @@ def main() -> int:
     # a kernel with a library yardstick is timed as it is, by CUDA-graph
     # replay (device time); the others by eager CUDA events (host included)
     graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",
-             "tile_mm": "tile_mm_headline_device"}
+             "tile_mm": "tile_mm_headline_device",
+             "ldiv_fused": "ldiv_fused_device",
+             "ldiv_fused_bf16": "ldiv_fused_bf16_device"}
     library = {"span_gather": "span_gather_library",
                "lu_tile": "lu_tile_library",
                "tile_mm": "tile_mm_headline_library"}

@@ -1,0 +1,362 @@
+"""The one-launch ldiv's task list and its plain executor.
+
+``build_ldiv_schedule`` turns the waves of both factors into one list of
+tasks (perm-in blocks, one task per destination block of every wave,
+perm-out blocks) with the earlier tasks each one waits for; the CUDA kernel
+``ldiv_fused`` runs that list by ticket, and ``fused_ldiv_plain`` runs it
+task by task on CPU tensors. Here the dependencies are held against every
+read/write conflict of the wave sequence, the plain executor against itself
+in random valid orders (bit for bit), against the plain wave route, and
+against the JAX package's ``pallas_fused_ldiv`` in interpret mode on the
+very same factorization, in float32 and with bfloat16 tiles.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+import torch
+from _approx import assert_isapprox
+
+import tpu_sparse_lu as jlu
+import tpu_sparse_lu_torch as tlu
+from tpu_sparse_lu.models import fe_block_matrix, laplacian_1d, poisson_2d
+from tpu_sparse_lu.ops.pallas_ldiv import (
+    SRC_LDINV,
+    SRC_LOFF,
+    SRC_PERMP,
+    SRC_PERMQ,
+    SRC_UDINV,
+    SRC_UOFF,
+    build_ldiv_ops,
+    build_lu_stream,
+    build_perm_stream,
+    pallas_fused_ldiv,
+    stream_gather_spec,
+)
+from tpu_sparse_lu.solve import block_rhs as jax_block_rhs
+from tpu_sparse_lu.solve import unblock_rhs as jax_unblock_rhs
+from tpu_sparse_lu_torch.ops import fused_ldiv as FL
+
+# the cases of tests/test_torch_ldiv.py, and the headline's pattern (2D
+# Poisson, nd) at a small size
+CASES = {
+    "poisson": (lambda rng: poisson_2d(10, 8), dict(chunk_size=8)),
+    "laplace1d": (lambda rng: laplacian_1d(50), dict(chunk_size=8)),
+    "fe": (lambda rng: fe_block_matrix(rng, 10, 5), dict(chunk_size=8)),
+    "poisson_nd": (lambda rng: poisson_2d(12, 12),
+                   dict(chunk_size=16, ordering="nd")),
+    "headline_nd": (lambda rng: poisson_2d(24, 24),
+                    dict(chunk_size=16, ordering="nd")),
+}
+JAX_CASES = ("poisson", "laplace1d", "fe", "poisson_nd")
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _solver(case, rng, **extra):
+    make, cfg = CASES[case]
+    A = make(rng)
+    return A, tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg, **extra),
+                                   device="cpu")
+
+
+def _deps(S, t):
+    return S.dep[S.dep_ptr[t]:S.dep_ptr[t + 1]].tolist()
+
+
+def _ancestors(S):
+    """Every task's ancestors in the dependency graph, as bit sets."""
+    anc = []
+    for t in range(S.n_tasks):
+        a = 0
+        for d in _deps(S, t):
+            a |= anc[d] | (1 << d)
+        anc.append(a)
+    return anc
+
+
+def _wave_route(F):
+    """Today's 32-launch route, one entry per task: (flags, dst, entries,
+    carrier blocks read, written), from the solver's waves and perms."""
+    K, cs = F.plan.lplan.K, F.plan.cs
+    ops = [(FL.PERM_IN, k, [], set(), {k}) for k in range(K + 1)]
+    for bank, data in ((0, F.ldata), (FL.BANK_U, F.udata)):
+        for w in data.waves:
+            ptr = w.ptr.tolist()
+            flags = FL.WAVE | bank | (FL.ACCUMULATE if w.accumulate else 0)
+            for i, d in enumerate(w.dst.tolist()):
+                ent = list(zip(w.ent_tile[ptr[i]:ptr[i + 1]].tolist(),
+                               w.ent_src[ptr[i]:ptr[i + 1]].tolist()))
+                reads = {s for _, s in ent} | ({d} if w.accumulate else set())
+                ops.append((flags, d, ent, reads, {d}))
+    q = F._qidx.numpy()
+    for m in range(-(-F.n // cs)):
+        ops.append((FL.PERM_OUT, m, [], set((q[m * cs:(m + 1) * cs] // cs)
+                                            .tolist()), set()))
+    return ops
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dependencies_order_every_conflict(rng, case):
+    """The task list is today's wave sequence, task by task, and every
+    read-after-write, write-after-write and write-after-read pair of it
+    on a carrier block is ordered by a path of dependencies, each to an
+    earlier ticket and each itself such a conflict."""
+    _, F = _solver(case, rng)
+    S = F._ldiv_sched
+    ops = _wave_route(F)
+    assert S.n_tasks == len(ops)
+    for t, (flags, d, ent, _, _) in enumerate(ops):
+        f, dst, e0, e1 = S.task[t].tolist()
+        assert (f, dst) == (flags, d)
+        assert list(zip(S.ent_tile[e0:e1].tolist(),
+                        S.ent_src[e0:e1].tolist())) == ent
+    anc = _ancestors(S)
+    conflicts = 0
+    for j, (_, _, _, rj, wj) in enumerate(ops):
+        deps = _deps(S, j)
+        assert all(d < j for d in deps)
+        for d in deps:  # no task waits for one it does not conflict with
+            _, _, _, rd, wd = ops[d]
+            assert (wd & rj) or (wd & wj) or (rd & wj), (case, d, j)
+        for i in range(j):
+            _, _, _, ri, wi = ops[i]
+            if (wi & rj) or (wi & wj) or (ri & wj):
+                conflicts += 1
+                assert (anc[j] >> i) & 1, (case, i, j)
+    assert conflicts > S.n_tasks
+
+
+def _random_order(S, rng):
+    """A seeded random topological order of the task graph."""
+    children = [[] for _ in range(S.n_tasks)]
+    indeg = np.zeros(S.n_tasks, dtype=int)
+    for t in range(S.n_tasks):
+        for d in _deps(S, t):
+            children[d].append(t)
+            indeg[t] += 1
+    ready = [t for t in range(S.n_tasks) if indeg[t] == 0]
+    order = []
+    while ready:
+        i = int(rng.integers(len(ready)))
+        ready[i], ready[-1] = ready[-1], ready[i]
+        t = ready.pop()
+        order.append(t)
+        for c in children[t]:
+            indeg[c] -= 1
+            if indeg[c] == 0:
+                ready.append(c)
+    assert len(order) == S.n_tasks
+    return order
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("R", [1, 4, 17])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_any_valid_order_gives_the_same_bits(rng, case, R, dtype):
+    """The plain executor in three random valid orders equals ticket order
+    bit for bit, and the plain wave route up to the rounding of the
+    batched product."""
+    A, F = _solver(case, rng, dtype=dtype)
+    S = F._ldiv_sched
+    b = torch.as_tensor(rng.standard_normal((A.shape[0], R)), dtype=F.dtype)
+    args = (b, S, F.ldata.tiles_t, F.udata.tiles_t, F._rs)
+    want = FL.fused_ldiv_plain(*args)
+    moved = 0
+    for seed in range(3):
+        order = _random_order(S, np.random.default_rng(seed))
+        moved += order != list(range(S.n_tasks))
+        assert torch.equal(FL.fused_ldiv_plain(*args, order=order), want)
+    assert moved
+    rtol = 1e-6 if dtype == "float32" else 1e-14
+    ref = F._direct_solve(b, plain=True)
+    torch.testing.assert_close(want, ref, rtol=rtol,
+                               atol=rtol * float(ref.abs().max()))
+    assert torch.equal(F._direct_solve(b), want)
+
+
+def _jax_ldiv(F, b):
+    """The JAX fused Pallas ldiv in interpret mode, with the solver's own
+    tile stream (float32 or bfloat16), as tests/test_pallas.py runs it."""
+    ops = build_ldiv_ops(F._pvec, F.plan.lplan, F.plan.uplan, F._qvec,
+                         KA=F._K_in)
+    sizes = {
+        SRC_PERMP: ops.res_p.shape[0],
+        SRC_LDINV: F.plan.lplan.K + 1,
+        SRC_LOFF: F.plan.lplan.T + 1,
+        SRC_UDINV: F.plan.uplan.K + 1,
+        SRC_UOFF: F.plan.uplan.T + 1,
+        SRC_PERMQ: ops.res_q.shape[0],
+    }
+    s_perm = build_perm_stream(
+        jnp.asarray(stream_gather_spec(ops, sizes, 0)),
+        jnp.asarray(ops.res_p), jnp.asarray(ops.res_q))
+    s_lu = build_lu_stream(
+        jnp.asarray(stream_gather_spec(ops, sizes, 1)),
+        F.ldata.diag_inv, F.ldata.offdiag,
+        F.udata.diag_inv, F.udata.offdiag, dtype=F._stream_dt)
+    xw = jax_block_rhs(b, F.n, F._K_in, F.plan.cs) * F._rs_blk
+    out = pallas_fused_ldiv(ops, s_perm, s_lu, xw, interpret=True)
+    return np.asarray(jax_unblock_rhs(out, F.n))
+
+
+def _jax_bank(jdata, dtype):
+    """The JAX solver's tile inverses and negated off-diagonal tiles as a
+    port tile bank (transposed)."""
+    bank = np.concatenate([np.asarray(jdata.diag_inv),
+                           np.asarray(jdata.offdiag)])
+    return torch.as_tensor(bank.transpose(0, 2, 1).copy()).to(dtype)
+
+
+@pytest.mark.parametrize("stream", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_plain_matches_jax_fused_ldiv(rng, tmp_path, case, R, stream):
+    """``fused_ldiv_plain`` on the JAX solver's own tiles against the JAX
+    TPU kernel in interpret mode: only the order of the sums differs (the
+    bar of tests/test_pallas.py:82, normwise as the reference suite
+    compares; elementwise too, except on the FE system, whose smallest
+    solution components carry f32 noise above 1e-6 absolute)."""
+    make, cfg = CASES[case]
+    A = make(rng)
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(
+        tri_mode="inv", dtype="float32", stream_dtype=stream, **cfg))
+    path = tmp_path / "state.npz"
+    jf.save(str(path), values=True)
+    with np.load(path) as z:
+        tf = tlu.ParallelSparseLU.from_jax_arrays(A, dict(z), device="cpu")
+    b = rng.random((A.shape[0], R)).astype(np.float32)
+    ref = _jax_ldiv(jf, jnp.asarray(b))
+    tdt = getattr(torch, stream)
+    got = FL.fused_ldiv_plain(torch.as_tensor(b), tf._ldiv_sched,
+                              _jax_bank(jf.ldata, tdt),
+                              _jax_bank(jf.udata, tdt), tf._rs).numpy()
+    assert_isapprox(got, ref, rtol=1e-5, atol=1e-6)
+    if case != "fe":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_schedule_lifetime(rng):
+    """A device refactorization keeps the schedule (the same object: only
+    the banks change); a host ``refactor`` that re-plans rebuilds it."""
+    A = poisson_2d(12, 12)
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=16, ordering="nd", dtype="float64"), device="cpu")
+    b = rng.random(A.shape[0])
+    F.refactor_numeric(A)  # the first one re-plans on the closure
+    S = F._ldiv_sched
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
+    F.refactor_numeric(A2)
+    assert F._ldiv_sched is S
+    np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A2, b),
+                               rtol=1e-9, atol=1e-12)
+    x = F.make_refactor_solve_step()(A2.data, b)
+    assert F._ldiv_sched is S
+    np.testing.assert_allclose(x.numpy(), spla.spsolve(A2, b), rtol=1e-9,
+                               atol=1e-12)
+    # a new pattern: the host refactorization re-plans, the list follows
+    A3 = (A2 + sp.diags([0.01] * (A.shape[0] - 3), 3)
+          + sp.diags([0.01] * (A.shape[0] - 3), -3)).tocsc()
+    F.refactor(A3)
+    S3 = F._ldiv_sched
+    assert S3 is not S
+    K, cs = F.plan.lplan.K, F.plan.cs
+    n_wave = sum(int(w.dst.shape[0]) for d in (F.ldata, F.udata)
+                 for w in d.waves)
+    assert S3.n_tasks == K + 1 + n_wave + -(-F.n // cs)
+    np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A3, b),
+                               rtol=1e-9, atol=1e-12)
+
+
+def test_refined_ldiv_matches_the_wave_route(rng):
+    """``ldiv`` with and without refinement against the same sweeps
+    composed from the plain wave route."""
+    A, F = _solver("poisson_nd", rng)
+    b = torch.as_tensor(rng.random((A.shape[0], 3)), dtype=F.dtype)
+    want = F._direct_solve(b, plain=True)
+    for steps in (0, 1):
+        if steps:
+            want = want + F._direct_solve(b - F.matvec(want), plain=True)
+        torch.testing.assert_close(F.ldiv(b, refine_steps=steps), want,
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_state_per_stream():
+    """The kernel's counters and flags: one set per (tickets, device,
+    stream), made fresh (generation 1, nothing done) and then kept."""
+    F = tlu.ParallelSparseLU(poisson_2d(6, 6), config=tlu.SolverConfig(
+        chunk_size=8), device="cpu")
+    S = F._ldiv_sched
+    a, b = S.state(4, "cpu", 11), S.state(4, "cpu", 12)
+    assert a is not b and a.data_ptr() != b.data_ptr()
+    assert a is S.state(4, "cpu", 11) and b is S.state(4, "cpu", 12)
+    assert S.state(4, "cpu") is S.state(4, "cpu", 0)
+    for s in (a, b, S.state(6, "cpu", 11)):
+        assert s.dtype == torch.int32
+        assert s.tolist() == [0, 0, 1] + [0] * (s.numel() - 3)
+
+
+def test_clock_patch_fits_the_shipped_kernel():
+    """``tools/ldiv_sweep.py --clocks`` patches its stamps into a copy of
+    ``csrc/ldiv_fused.cu`` at fixed anchors: each must occur exactly once
+    in the shipped source, which itself carries no stamp."""
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "ldiv_sweep", root / "tools" / "ldiv_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    src = (root / "tpu_sparse_lu_torch" / "csrc" / "ldiv_fused.cu").read_text()
+    assert "CLOCK" not in src and "globaltimer" not in src
+    patched = sweep._with_clocks(src)
+    assert patched.count("CLOCK(") == 11
+    assert "int ldiv_fused_clocks(void* host, int n)" in patched
+    with pytest.raises(SystemExit, match="not once"):
+        sweep._with_clocks(src.replace("    // 3. the task\n", ""))
+
+
+def test_wrappers_on_cpu_launch_nothing(rng):
+    A, F = _solver("poisson_nd", rng, dtype="float32")
+    S = F._ldiv_sched
+    b = torch.as_tensor(rng.random((A.shape[0], 2)), dtype=torch.float32)
+    before = (FL.fused_ldiv.LAUNCHES, FL.fused_ldiv_bf16.LAUNCHES)
+    L, U = F.ldata.tiles_t, F.udata.tiles_t
+    Lb, Ub = L.bfloat16(), U.bfloat16()
+    assert torch.equal(FL.fused_ldiv(b, S, L, U, F._rs),
+                       FL.fused_ldiv_plain(b, S, L, U, F._rs))
+    assert torch.equal(FL.fused_ldiv_bf16(b, S, Lb, Ub, F._rs),
+                       FL.fused_ldiv_plain(b, S, Lb, Ub, F._rs))
+    assert (FL.fused_ldiv.LAUNCHES, FL.fused_ldiv_bf16.LAUNCHES) == before
+    with pytest.raises(ValueError, match="bfloat16 banks"):
+        FL.fused_ldiv_bf16(b, S, L, U, F._rs)
+    with pytest.raises(ValueError, match="device type 'meta'"):
+        FL.fused_ldiv(b.to("meta"), S, L.to("meta"), U.to("meta"),
+                      F._rs.to("meta"))
+
+
+def test_schedule_rejects_bad_maps():
+    F = tlu.ParallelSparseLU(poisson_2d(6, 6), config=tlu.SolverConfig(
+        chunk_size=8), device="cpu")
+    lp, up, cs = F.plan.lplan, F.plan.uplan, F.plan.cs
+    p, q = F._pidx.numpy(), F._qidx.numpy()
+    with pytest.raises(ValueError, match="pidx"):
+        FL.build_ldiv_schedule(lp, up, p[:-1], q, F.n, cs, "cpu")
+    with pytest.raises(ValueError, match="qidx outside"):
+        FL.build_ldiv_schedule(lp, up, p, q + (lp.K + 1) * cs, F.n, cs, "cpu")
+    S = FL.build_ldiv_schedule(lp, up, p, q, F.n, cs, "cpu")
+    assert S.state(5, "cpu").tolist() == [0, 0, 1, 0, 0, 0, 0, 0]
+    assert S.state(5, "cpu") is S.state(5, "cpu")

@@ -19,9 +19,10 @@ refactor in place when values change but sparsity doesn't → solve again.
 Construction (SuperLU, or with ``factorize="device"`` no numeric host
 factorization at all; the nd embedding; planning) runs on the host; the
 packed tiles, their inverses and the solves live on ``device``. A solve on
-a CUDA device runs the hand-written kernels of ``ops/fused_ldiv.py`` —
-or, for bidiagonal factors (1-D chains), the one of ``ops/bidiag_ldiv.py``
-— and a device refactorization those of ``ops/span_gather.py``,
+a CUDA device is one launch of the hand-written kernel of
+``ops/fused_ldiv.py`` (``fused_ldiv``) — or, for bidiagonal factors (1-D
+chains), the one of ``ops/bidiag_ldiv.py`` — and a device
+refactorization runs those of ``ops/span_gather.py``,
 ``ops/lu_tile.py`` and ``ops/elimination.py``.
 """
 
@@ -38,7 +39,12 @@ import scipy.sparse as sp
 import torch
 
 from .ops.bidiag_ldiv import bidiag_ldiv, bidiag_ldiv_plain
-from .ops.fused_ldiv import perm_gather, perm_gather_plain
+from .ops.fused_ldiv import (
+    build_ldiv_schedule,
+    fused_ldiv,
+    fused_ldiv_bf16,
+    perm_gather_plain,
+)
 from .ops.scan_solve import bidiag_bands, chain_planes
 from .pack import pack_factor
 from .solve import (
@@ -514,9 +520,10 @@ class ParallelSparseLU:
     # -- device state -------------------------------------------------------
     def _prepare_device(self) -> None:
         """Pack the factor nonzeros into tiles, invert the diagonal tiles
-        and build the wave schedules and permutation vectors (the
-        reference's allocate_chunks + fill_chunks!, src:151-243), then
-        detect a bidiagonal chain (:meth:`_prepare_scan_path`)."""
+        and build the wave schedules, the permutation vectors and the task
+        list of the one-launch solve (the reference's allocate_chunks +
+        fill_chunks!, src:151-243), then detect a bidiagonal chain
+        (:meth:`_prepare_scan_path`)."""
         plan, dev = self.plan, self.device
         # numeric-state generation: a make_f64_ldiv callable records it and
         # refuses to run once it moved
@@ -547,6 +554,10 @@ class ParallelSparseLU:
         self._pidx = torch.as_tensor(pidx, device=dev)
         self._qidx = torch.as_tensor(np.asarray(qvec, dtype=np.int32),
                                      device=dev)
+        # the whole solve as one task list (ops/fused_ldiv.py); a device
+        # refactorization changes only the banks and keeps it
+        self._ldiv_sched = build_ldiv_schedule(
+            plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
         # Rs in input row order: the perm-in scales before it permutes
         self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
                                    device=dev)
@@ -616,10 +627,12 @@ class ParallelSparseLU:
     def _direct_solve(self, b: torch.Tensor, *,
                       plain: bool = False) -> torch.Tensor:
         """``x = A⁻¹ b`` for a contiguous (n, R) tensor on the device:
-        perm-in with ``Rs``, the L waves, the U waves, perm-out.
+        perm-in with ``Rs``, the L waves, the U waves, perm-out, in one
+        launch of ``fused_ldiv``.
 
-        ``plain=True`` runs the plain PyTorch version of every kernel; it
-        exists to hold the kernel path against it on the card.
+        ``plain=True`` runs the plain PyTorch version of the perms and of
+        every wave instead; it exists to hold the kernel path against it
+        on the card.
         """
         return self._solve_with(self.ldata, self.udata, self._rs, b,
                                 plain=plain)
@@ -627,14 +640,20 @@ class ParallelSparseLU:
     def _solve_with(self, ldata: TriKernelData, udata: TriKernelData,
                     rs: torch.Tensor, b: torch.Tensor, *,
                     plain: bool = False) -> torch.Tensor:
-        """:meth:`_direct_solve` with the given banks and row scaling."""
-        gather = perm_gather_plain if plain else perm_gather
-        R = b.shape[1]
-        xw = gather(b, self._pidx, rs).view(
-            self.plan.lplan.K + 1, self.plan.cs, R)
-        blocked_tri_solve(ldata, xw, plain=plain, stream=True)
-        blocked_tri_solve(udata, xw, plain=plain, stream=True)
-        return gather(xw.view(-1, R), self._qidx)
+        """:meth:`_direct_solve` with the given banks and row scaling.
+        Reads the tile stream: the bfloat16 banks where there are some."""
+        if plain:
+            R = b.shape[1]
+            xw = perm_gather_plain(b, self._pidx, rs).view(
+                self.plan.lplan.K + 1, self.plan.cs, R)
+            blocked_tri_solve(ldata, xw, plain=True, stream=True)
+            blocked_tri_solve(udata, xw, plain=True, stream=True)
+            return perm_gather_plain(xw.view(-1, R), self._qidx)
+        if ldata.tiles_bf16 is not None:
+            return fused_ldiv_bf16(b, self._ldiv_sched, ldata.tiles_bf16,
+                                   udata.tiles_bf16, rs)
+        return fused_ldiv(b, self._ldiv_sched, ldata.tiles_t, udata.tiles_t,
+                          rs)
 
     def _chain_solve(self, b: torch.Tensor, *,
                      plain: bool = False) -> torch.Tensor:
@@ -648,7 +667,7 @@ class ParallelSparseLU:
 
     def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
         """One direct solve of ``ldiv``: the chain solve when the factors
-        are a chain under identity permutations, else the tile waves."""
+        are a chain under identity permutations, else the tile solve."""
         if self._scan_perm_id:
             return self._chain_solve(b)
         return self._direct_solve(b)
@@ -690,7 +709,10 @@ class ParallelSparseLU:
         iterative-refinement sweeps ``x += solve(b - A x)`` after the direct
         solve, with the residual in the solver's dtype. Bidiagonal factors
         under identity permutations (1-D chains, natural ordering) solve
-        through the chain kernel, anything else through the tile waves.
+        through the chain kernel; anything else is one launch of the tile
+        solve (``fused_ldiv``), which keeps its ready flags in the solver,
+        one set per CUDA stream: solves on different streams may run at
+        once.
         """
         if self.m != self.n:
             raise ValueError(f"`F` is not square: m={self.m}, n={self.n}")
@@ -932,8 +954,9 @@ class ParallelSparseLU:
 
         with the residual ``b - A x`` and ``x`` in float64 (a float64
         sparse CSR product with the CURRENT values of A) and every direct
-        solve the float32 one ``ldiv`` runs (the chain kernel or the tile
-        waves, with the bfloat16 tile stream where configured). Each sweep
+        solve the float32 one ``ldiv`` runs (the chain kernel or one launch
+        of the tile solve, with the bfloat16 tile stream where configured).
+        Each sweep
         contracts the error by ~kappa(A)·eps of the stream, so a few sweeps
         reach the reference's 1e-12 bar (test/runtests.jl:25).
 
@@ -991,6 +1014,7 @@ class ParallelSparseLU:
         self._scan_bands = self._scan_planes = None
         self._scan_perm_id = False
         self._A_dev = self._a64 = self._pidx = self._qidx = self._rs = None
+        self._ldiv_sched = None
         self._csr_pattern = self._csc_to_csr = self._ext_pos_dev = None
         self._init_refactor_state()
 

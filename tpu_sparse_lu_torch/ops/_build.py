@@ -95,6 +95,20 @@ def _compile(srcs, out: Path) -> None:
         os.replace(so, out)
 
 
+def bind_fused_ldiv(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/ldiv_fused.cu``'s entries (also bound
+    on the side libraries of ``tools/ldiv_sweep.py``)."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for dt in ("f32", "f64", "bf16"):
+        f = getattr(lib, f"ldiv_fused_{dt}")
+        f.argtypes = [P] * 14 + [I, L, I, I, I, P]
+        f.restype = I
+        f = getattr(lib, f"ldiv_fused_{dt}_capacity")
+        f.argtypes = [I, I]
+        f.restype = I
+    return lib
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for dt in ("f32", "f64"):
@@ -118,6 +132,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f.restype = I
     lib.ldiv_wave_apply_bf16.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     lib.ldiv_wave_apply_bf16.restype = I
+    bind_fused_ldiv(lib)
     lib.ldiv_error_string.argtypes = [I]
     lib.ldiv_error_string.restype = ctypes.c_char_p
     lib.ldiv_max_chunk.argtypes = []

@@ -3,9 +3,18 @@
 
 The TPU kernel runs the whole ``ldiv`` (perm-in → L levels → U levels →
 perm-out) as one serial op stream ``X[dst] = X[src] @ tileᵀ + acc·X[dst]``
-because one TensorCore executes it. On the H100 the parallelism is the
-width of each dependency wave, so the same work becomes launches of two
-hand-written CUDA kernels (``csrc/ldiv.cu``):
+because one TensorCore executes it. On the H100 ``ldiv`` is one launch of
+:func:`fused_ldiv` (``csrc/ldiv_fused.cu``): the host turns the waves of
+both factors into one task list (:func:`build_ldiv_schedule`, once per
+plan), and the blocks of the launch take its tasks by ticket, each
+waiting on the ready flags of the tasks it depends on, so levels overlap
+where the data allows and every tile loads before its task's wait.
+:func:`fused_ldiv_bf16` is the same launch on bfloat16 tiles.
+
+The wave kernels below (``csrc/ldiv.cu``) serve ``lsolve``/``rsolve``; a
+task of the one-launch solve computes exactly what their blocks compute,
+so the one launch and the 32-launch route (``perm_gather``, the waves,
+``perm_gather``) give the same bits:
 
 * :func:`perm_gather` — ``y[i] = scale[s]·v[s]`` with ``s = idx[i]`` (0 where
   ``s < 0``): perm-in with the row scaling ``Rs`` folded in, and perm-out;
@@ -21,9 +30,8 @@ hand-written CUDA kernels (``csrc/ldiv.cu``):
 
 Each wrapper runs its kernel on a CUDA tensor and the plain PyTorch version
 beside it (``*_plain``) on a CPU tensor, and raises on anything else. The
-plain versions are the reference the kernels are held against.
-``perm_gather.LAUNCHES``, ``wave_apply.LAUNCHES`` and
-``wave_apply_bf16.LAUNCHES`` count kernel launches.
+plain versions are the reference the kernels are held against. Each
+wrapper's ``LAUNCHES`` counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -43,8 +51,13 @@ from ._launch import require as _require
 from ._launch import stream as _stream
 
 __all__ = [
+    "LdivSchedule",
     "Wave",
+    "build_ldiv_schedule",
     "build_waves",
+    "fused_ldiv",
+    "fused_ldiv_bf16",
+    "fused_ldiv_plain",
     "make_wave",
     "perm_gather",
     "perm_gather_plain",
@@ -113,21 +126,15 @@ def make_wave(dst, groups, accumulate: bool, device) -> Wave:
     )
 
 
-def build_waves(plan: TriPlan, device) -> List[Wave]:
-    """The dependency waves of one factor's level schedule.
-
-    Tile ids index the factor's bank ``[Dinv_0..Dinv_K, Off_0..Off_T]``:
-    chunk ``k``'s inverse is ``k``, off-diagonal tile ``t`` is ``K+1+t``.
-    Only the real ``level_chunk_counts``/``level_tile_counts`` entries are
-    read; the padding slots of the level arrays are never touched.
-    """
+def _level_waves(plan: TriPlan):
+    """The waves of one factor as host lists ``(dst, groups, accumulate)``
+    (see :func:`build_waves`)."""
     K = plan.K
     waves = []
     for l in range(plan.num_levels):
         chunks = plan.level_chunks[l, : int(plan.level_chunk_counts[l])]
-        chunks = chunks.tolist()
-        waves.append(make_wave(chunks, [[(k, k)] for k in chunks], False,
-                               device))
+        chunks = [int(k) for k in chunks]
+        waves.append((chunks, [[(k, k)] for k in chunks], False))
         tiles = plan.level_tiles[l, : int(plan.level_tile_counts[l])]
         if tiles.size == 0:
             continue
@@ -137,8 +144,20 @@ def build_waves(plan: TriPlan, device) -> List[Wave]:
                 (K + 1 + t, int(plan.tile_bcol[t]))
             )
         dst = sorted(by_dst)
-        waves.append(make_wave(dst, [by_dst[d] for d in dst], True, device))
+        waves.append((dst, [by_dst[d] for d in dst], True))
     return waves
+
+
+def build_waves(plan: TriPlan, device) -> List[Wave]:
+    """The dependency waves of one factor's level schedule.
+
+    Tile ids index the factor's bank ``[Dinv_0..Dinv_K, Off_0..Off_T]``:
+    chunk ``k``'s inverse is ``k``, off-diagonal tile ``t`` is ``K+1+t``.
+    Only the real ``level_chunk_counts``/``level_tile_counts`` entries are
+    read; the padding slots of the level arrays are never touched.
+    """
+    return [make_wave(dst, groups, acc, device)
+            for dst, groups, acc in _level_waves(plan)]
 
 
 # ---------------------------------------------------------------------------
@@ -278,3 +297,348 @@ def wave_apply_bf16(x: torch.Tensor, tiles_t: torch.Tensor,
 
 
 wave_apply_bf16.LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# the whole ldiv in one launch: task list, plain executor, fused_ldiv
+# ---------------------------------------------------------------------------
+
+# kinds and flags of a task (LdivSchedule.task[:, 0]); csrc/ldiv_fused.cu
+# reads the same bits
+PERM_IN, WAVE, PERM_OUT = 0, 1, 2
+KIND_MASK = 3
+BANK_U = 4
+ACCUMULATE = 8
+
+
+def _device(device) -> torch.device:
+    """``device`` with its index: ``cuda`` means the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def strip_width(R: int) -> int:
+    """Columns of R one ticket covers: as wide as R up to 16, as
+    ``launch_wave`` picks them (``csrc/ldiv.cu``)."""
+    return 1 if R == 1 else (4 if R <= 4 else 16)
+
+
+@dataclasses.dataclass
+class LdivSchedule:
+    """The whole ``ldiv`` as one list of tasks in ticket order, with the
+    tasks each one waits for: the host side of :func:`fused_ldiv`.
+
+    Tasks, in order: ``K+1`` perm-in tasks (carrier block ``k`` of
+    ``x = Rs ⊙ b[pidx]``), one task per destination block of every wave of
+    the L factor then of the U factor, in wave order, and one perm-out
+    task per block of ``cs`` rows of ``y = x[qidx]``. ``task[t]`` is
+    ``(flags, dst, e0, e1)``: the kind and bits of the ``*`` constants
+    above, the block written, and the task's entries ``e0:e1`` of
+    ``ent_tile``/``ent_src`` (a tile of the task's factor bank applied to
+    a carrier block), in the wave's CSR order. ``dep[dep_ptr[t]:
+    dep_ptr[t+1]]`` are the earlier tasks ``t`` waits for: every
+    read-after-write, write-after-write and write-after-read conflict on a
+    carrier block. Each task runs once per strip of
+    :func:`strip_width` columns, and a strip waits only for the same strip
+    of its dependencies: ticket ``t * strips + strip``.
+
+    Host arrays are NumPy int32; :meth:`on` gives them on a device.
+    :meth:`state` holds the kernel's counters and ready flags, one set per
+    stream (see :func:`fused_ldiv`).
+    """
+
+    n: int  # rows of b and y
+    cs: int
+    K: int  # carrier blocks: K + 1
+    task: np.ndarray  # (n_tasks, 4)
+    dep_ptr: np.ndarray  # (n_tasks + 1,)
+    dep: np.ndarray
+    ent_tile: np.ndarray
+    ent_src: np.ndarray
+    pidx: np.ndarray  # ((K + 1) * cs,) row of b of each carrier row, -1: 0
+    qidx: np.ndarray  # (n,) carrier row of each row of y
+    device: torch.device
+
+    def __post_init__(self):
+        self.device = _device(self.device)
+        self._on = {}
+        self._state = {}
+        # the tiles each bank must hold; the entries lie in task order
+        upper = np.repeat((self.task[:, 0] & BANK_U) != 0,
+                          self.task[:, 3] - self.task[:, 2])
+        self.l_tiles, self.u_tiles = (
+            int(t.max()) + 1 if t.size else 0
+            for t in (self.ent_tile[~upper], self.ent_tile[upper]))
+        self.on(self.device)
+
+    @property
+    def n_tasks(self) -> int:
+        return self.task.shape[0]
+
+    def on(self, device) -> dict:
+        """The index arrays as int32 tensors on ``device`` (kept)."""
+        dev = _device(device)
+        if dev not in self._on:
+            self._on[dev] = {
+                k: torch.as_tensor(np.ascontiguousarray(getattr(self, k)),
+                                   device=dev)
+                for k in ("task", "dep_ptr", "dep", "ent_tile", "ent_src",
+                          "pidx", "qidx")}
+        return self._on[dev]
+
+    def state(self, n_tickets: int, device, stream: int = 0) -> torch.Tensor:
+        """The kernel's int32 words for ``n_tickets`` tickets on the raw
+        CUDA stream ``stream``, made once and then left to the kernel:
+        ticket counter, exit counter, generation (starts at 1), then one
+        ready flag per ticket (start at 0, so a fresh state never reads as
+        done). Launches on one stream run one after another, so each
+        stream's words serve one launch at a time."""
+        key = (n_tickets, _device(device), stream)
+        if key not in self._state:
+            s = torch.zeros(3 + n_tickets, dtype=torch.int32, device=device)
+            s[2] = 1
+            self._state[key] = s
+        return self._state[key]
+
+
+def _hazard_deps(access, n_blocks: int):
+    """Per task, the earlier tasks it must wait for, from each task's
+    ``(reads, writes)`` carrier blocks in order: the last writer of every
+    block it reads or writes (RAW, WAW) and every reader of a block it
+    writes since that block's last write (WAR)."""
+    last = [-1] * n_blocks
+    readers = [[] for _ in range(n_blocks)]
+    out = []
+    for t, (reads, writes) in enumerate(access):
+        need = {last[c] for c in list(reads) + list(writes) if last[c] >= 0}
+        for c in writes:
+            need.update(readers[c])
+        out.append(sorted(need))
+        for c in reads:
+            readers[c].append(t)
+        for c in writes:
+            last[c] = t
+            readers[c] = []
+    return out
+
+
+def build_ldiv_schedule(lplan: TriPlan, uplan: TriPlan, pidx, qidx, n: int,
+                        cs: int, device) -> LdivSchedule:
+    """The task list of one solve (:class:`LdivSchedule`) from the two
+    factors' level plans and the perm-in/perm-out row maps: ``pidx``
+    ((K+1)·cs,), the row of ``b`` each carrier row takes (-1: 0), and
+    ``qidx`` (n,), the carrier row of each row of ``y``."""
+    K = lplan.K
+    _require(uplan.K == K and lplan.cs == uplan.cs == cs,
+             "L and U plans of different chunkings")
+    pidx = np.asarray(pidx, dtype=np.int32)
+    qidx = np.asarray(qidx, dtype=np.int32)
+    _require(pidx.shape == ((K + 1) * cs,) and qidx.shape == (n,),
+             f"pidx {pidx.shape} / qidx {qidx.shape} for K={K}, cs={cs}, "
+             f"n={n}")
+    _require(bool((qidx >= 0).all() and (qidx < (K + 1) * cs).all()),
+             "qidx outside the carrier")
+    task, ent, access = [], [], []
+    for k in range(K + 1):
+        task.append((PERM_IN, k, 0, 0))
+        access.append(((), (k,)))
+    for bank, plan in ((0, lplan), (BANK_U, uplan)):
+        for dst, groups, acc in _level_waves(plan):
+            for d, g in zip(dst, groups):
+                e0 = len(ent)
+                ent.extend(g)
+                task.append((WAVE | bank | (ACCUMULATE if acc else 0), d,
+                             e0, len(ent)))
+                access.append(([s for _, s in g] + ([d] if acc else []),
+                               (d,)))
+    for m in range(-(-n // cs)):
+        task.append((PERM_OUT, m, 0, 0))
+        rows = qidx[m * cs:(m + 1) * cs]
+        access.append((np.unique(rows // cs).tolist(), ()))
+    deps = _hazard_deps(access, K + 1)
+    for t, d in enumerate(deps):
+        # the ticket order is the wave order: every dependency comes first
+        assert all(x < t for x in d), (t, d)
+    ent = np.asarray(ent, dtype=np.int32).reshape(-1, 2)
+    return LdivSchedule(
+        n=n, cs=cs, K=K, task=np.asarray(task, dtype=np.int32),
+        dep_ptr=np.concatenate([[0], np.cumsum([len(d) for d in deps])])
+        .astype(np.int32),
+        dep=np.asarray([x for d in deps for x in d], dtype=np.int32),
+        ent_tile=np.ascontiguousarray(ent[:, 0]),
+        ent_src=np.ascontiguousarray(ent[:, 1]),
+        pidx=pidx, qidx=qidx, device=device)
+
+
+def _plain_steps(sched: LdivSchedule, dev) -> list:
+    """Per task, what :func:`fused_ldiv_plain` needs on ``dev``, made once:
+    kind, flags, destination block, and as long tensors its rows (perm
+    tasks) or its entries' tiles and sources (wave tasks)."""
+    idx = sched.on(dev)
+    if "steps" not in idx:
+        cs, n_x = sched.cs, (sched.K + 1) * sched.cs
+        steps = []
+        for flags, d, e0, e1 in sched.task.tolist():
+            kind = flags & KIND_MASK
+            if kind == WAVE:
+                steps.append((kind, flags, d, idx["ent_tile"][e0:e1].long(),
+                              idx["ent_src"][e0:e1].long()))
+            else:
+                hi = min((d + 1) * cs, n_x if kind == PERM_IN else sched.n)
+                steps.append((kind, flags, d,
+                              torch.arange(d * cs, hi, device=dev)))
+        idx["steps"] = steps
+    return idx["steps"]
+
+
+def fused_ldiv_plain(b: torch.Tensor, sched: LdivSchedule,
+                     lbank: torch.Tensor, ubank: torch.Tensor,
+                     rs: torch.Tensor, order=None) -> torch.Tensor:
+    """The task list of ``sched`` run one task after another with the
+    plain pieces: :func:`perm_gather_plain` for a perm task (consecutive
+    perm tasks of one kind as one gather, which is the same elementwise
+    arithmetic), and for a wave task the per-destination ``bmm`` of
+    :func:`wave_apply_plain`, its products added to the old block (or to
+    0) in entry order, as ``index_add_`` adds them. ``order`` — the task ids
+    in the order to run them (any topological order of the dependencies
+    gives the same bits); ticket order by default."""
+    R, cs = b.shape[1], sched.cs
+    dev = b.device
+    x = torch.empty((sched.K + 1, cs, R), dtype=b.dtype, device=dev)
+    y = torch.empty((sched.n, R), dtype=b.dtype, device=dev)
+    idx, steps = sched.on(dev), _plain_steps(sched, dev)
+    xf = x.view(-1, R)
+    rows, rows_kind = [], None
+
+    def gather():  # the pending perm tasks, mutually independent
+        r = rows[0] if len(rows) == 1 else torch.cat(rows)
+        if rows_kind == PERM_IN:
+            xf[r] = perm_gather_plain(b, idx["pidx"][r], rs)
+        else:
+            y[r] = perm_gather_plain(xf, idx["qidx"][r])
+        rows.clear()
+
+    for t in range(sched.n_tasks) if order is None else order:
+        kind, flags, d, *ent = steps[t]
+        if rows and kind != rows_kind:
+            gather()
+        if kind != WAVE:
+            rows.append(ent[0])
+            rows_kind = kind
+            continue
+        tiles, src = ent
+        bank = ubank if flags & BANK_U else lbank
+        contrib = torch.bmm(bank[tiles].to(b.dtype).transpose(1, 2), x[src])
+        xd = x[d]
+        if not flags & ACCUMULATE:
+            xd.zero_()
+        for c in contrib:
+            xd.add_(c)
+    if rows:
+        gather()
+    return y
+
+
+_CAPACITY = {}  # (kernel, device, cs, strip width) -> resident blocks
+
+
+def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
+                  lbank: torch.Tensor, ubank: torch.Tensor, rs: torch.Tensor,
+                  grid: Optional[int]) -> torch.Tensor:
+    n, R = b.shape
+    cs = sched.cs
+    _require(b.dim() == 2 and b.is_contiguous() and n == sched.n,
+             f"b must be contiguous ({sched.n}, R), got {tuple(b.shape)}")
+    _require(rs.shape == (n,) and rs.dtype == b.dtype and rs.is_contiguous(),
+             "rs must be contiguous (n,) of b's dtype")
+    for bank, need in ((lbank, sched.l_tiles), (ubank, sched.u_tiles)):
+        _require(bank.dim() == 3 and bank.shape[1:] == (cs, cs)
+                 and bank.is_contiguous() and bank.shape[0] >= need,
+                 f"a tile bank must be contiguous (>= {need}, {cs}, {cs}), "
+                 f"got {tuple(bank.shape)}")
+    _require(cs <= _lib().max_chunk, f"the CUDA ldiv kernel takes "
+             f"chunk_size <= {_lib().max_chunk}, got {cs}")
+    rb = strip_width(R)
+    n_tickets = sched.n_tasks * -(-R // rb)
+    if grid is None:
+        key = (name, b.device, cs, rb)
+        if key not in _CAPACITY:
+            cap = getattr(_lib(), f"{name}_capacity")(cs, R)
+            if cap < 0:
+                _check(-cap, name)
+            _CAPACITY[key] = cap
+        grid = _CAPACITY[key]
+    grid = max(1, min(int(grid), n_tickets))
+    stream = _stream(b)
+    state = sched.state(n_tickets, b.device, stream)
+    x = torch.empty((sched.K + 1, cs, R), dtype=b.dtype, device=b.device)
+    y = torch.empty((n, R), dtype=b.dtype, device=b.device)
+    i = sched.on(b.device)
+    rc = getattr(_lib(), name)(
+        y.data_ptr(), x.data_ptr(), b.data_ptr(), rs.data_ptr(),
+        lbank.data_ptr(), ubank.data_ptr(), i["task"].data_ptr(),
+        i["dep_ptr"].data_ptr(), i["dep"].data_ptr(),
+        i["ent_tile"].data_ptr(), i["ent_src"].data_ptr(),
+        i["pidx"].data_ptr(), i["qidx"].data_ptr(), state.data_ptr(),
+        sched.n_tasks, n, cs, R, grid, stream)
+    _check(rc, name)
+    return y
+
+
+def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
+               ubank: torch.Tensor, rs: torch.Tensor, *,
+               grid: Optional[int] = None) -> torch.Tensor:
+    """``y = ldiv`` of ``b`` (n, R) in one launch of ``ldiv_fused``
+    (``csrc/ldiv_fused.cu``): perm-in with the row scaling ``rs`` (n,),
+    the L and U waves on the factor banks ``lbank``/``ubank`` (transposed
+    tiles of ``b``'s dtype, float32 or float64), perm-out. Returns a new
+    (n, R) tensor.
+
+    The blocks of the launch take the tasks of ``sched`` by ticket and
+    wait on ready flags kept in ``sched.state``, one set per stream; the
+    last block to leave resets the counters and advances the generation
+    the flags are read against, so the launch needs nothing from the host
+    per call and may be captured in a CUDA graph. Solves on different
+    streams may run at once. A graph keeps the flags of the stream it was
+    captured on, so one replay of it may run at a time (and a first solve
+    on that stream inside the capture puts the flags' zeroing into every
+    replay: warm up on the capture stream). ``grid`` — blocks of the
+    launch (default: as many as the card holds at once); any number from
+    1 up gives the same bits. A CPU tensor runs :func:`fused_ldiv_plain`.
+    """
+    if _device_kind(b, lbank, ubank, rs) == "cpu":
+        return fused_ldiv_plain(b, sched, lbank, ubank, rs)
+    _require(b.dtype in _KERNEL_DTYPES, f"unsupported dtype {b.dtype}")
+    _require(lbank.dtype == ubank.dtype == b.dtype, f"banks of "
+             f"{lbank.dtype}/{ubank.dtype} for {b.dtype} (bfloat16 banks: "
+             f"fused_ldiv_bf16)")
+    y = _launch_fused(f"ldiv_fused_{_KERNEL_DTYPES[b.dtype]}", b, sched,
+                      lbank, ubank, rs, grid)
+    fused_ldiv.LAUNCHES += 1
+    return y
+
+
+fused_ldiv.LAUNCHES = 0
+
+
+def fused_ldiv_bf16(b: torch.Tensor, sched: LdivSchedule,
+                    lbank: torch.Tensor, ubank: torch.Tensor,
+                    rs: torch.Tensor, *,
+                    grid: Optional[int] = None) -> torch.Tensor:
+    """:func:`fused_ldiv` with bfloat16 banks and a float32 ``b``: each
+    tile widens to float32 as it is read, as in
+    :func:`wave_apply_bf16`."""
+    _require(lbank.dtype == ubank.dtype == torch.bfloat16
+             and b.dtype == torch.float32, f"fused_ldiv_bf16 takes bfloat16 "
+             f"banks and float32 b, got {lbank.dtype}/{ubank.dtype}/"
+             f"{b.dtype}")
+    if _device_kind(b, lbank, ubank, rs) == "cpu":
+        return fused_ldiv_plain(b, sched, lbank, ubank, rs)
+    y = _launch_fused("ldiv_fused_bf16", b, sched, lbank, ubank, rs, grid)
+    fused_ldiv_bf16.LAUNCHES += 1
+    return y
+
+
+fused_ldiv_bf16.LAUNCHES = 0

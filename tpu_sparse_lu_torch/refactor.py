@@ -411,7 +411,7 @@ def refactor_numeric_values(F, a_data: torch.Tensor, *,
     # the host csc factor values (F.L/F.U) materialize lazily from these
     F._factors_stale = True
     # the chain path (api._prepare_scan_path) holds factor values from the
-    # last re-pack: stale now, so the tile waves serve until the next one
+    # last re-pack: stale now, so the tile solve serves until the next one
     F._scan_bands = F._scan_planes = None
     F._scan_perm_id = False
     F.refactor_diagnostics = {"min_pivot": out["min_pivot"],
