@@ -32,21 +32,27 @@ Phases, one line of output each; any failure raises and exits non-zero:
    32-launch route, eager (CUDA events) and by CUDA-graph replay, and
    against the plain PyTorch path on the same CUDA tensors;
 6. the refactorization kernels against their plain versions: span gather
-   (B4, bit for bit) at cs in {16, 128}, tile LU (B2) with both inverses
+   (bit for bit) at cs in {16, 128}, tile LU (B2) with both inverses
    and alone at cs in {16, 45, 100, 128} and the elimination's tile
    products (B3) at cs in {16, 45, 128}, on seeded random inputs in
-   float32 and float64; then the real stores of both deployments — the
-   headline and BASELINE config 2 (``block_banded(rng, 120, 30)``,
-   colamd, chunk_size=128) — assembled and eliminated by the kernels and
-   by the plain versions (bounds: ``LU_TOL`` and ``ELIM_TOL``, max
-   relative difference over the real tiles);
+   float32 and float64; the assembly (B4: ``assemble_tiles`` and
+   ``assemble_closure``) bit for bit equal to the
+   yardstick route (``span_gather`` and a PyTorch op per stage) and to the
+   plain route on seeded random patterns at cs 16 and 128 and on the real
+   stores of both deployments — the headline and BASELINE config 2
+   (``block_banded(rng, 120, 30)``, colamd, chunk_size=128) — in float32
+   and float64; then those stores eliminated by the kernels and by the
+   plain versions (bounds: ``LU_TOL`` and ``ELIM_TOL``, max relative
+   difference over the real tiles);
 7. the device lifecycle on the headline: construct with
    ``factorize="auto"`` (device under nd: no SuperLU), ``ldiv`` (same
    bars as phase 3), ``refactor_numeric`` with seeded same-pattern values
    then ``ldiv``, ``refactor_numeric(check=True)`` on benign values, and a
    float64 device-factorized solver held to 1e-9 of ``spsolve`` after
-   ``refactor_numeric``; every kernel launched, and every solve one
-   ``ldiv_fused`` launch;
+   ``refactor_numeric``; every kernel launched, every solve one
+   ``ldiv_fused`` launch and no ``span_gather``; then the yardstick
+   assembly (``span_gather``) bit for bit equal to the two assembly
+   kernels on the last values;
 8. BASELINE config 2's fused step at full size: ``make_refactor_solve_step``
    at R = 8 on ``1.01 * A``, backward error < 1e-3 (the gate of
    ``bench.py:261-270``);
@@ -56,14 +62,19 @@ Phases, one line of output each; any failure raises and exits non-zero:
    CUDA-graph replay: every tile product of one elimination (headline and
    config 2) against ``torch.bmm`` on the same products, the
    ``refactor_numeric`` pipeline, the elimination less its tile products
-   (its ``lu_tile`` launches), ``span_gather``/``lu_tile`` against
+   (its ``lu_tile`` launches), the assembly alone (two launches against
+   the yardstick route, eager and by replay) and the extraction (the
+   pipeline less the elimination and the assembly) on both deployments,
+   each assembly kernel alone, ``span_gather``/``lu_tile`` against
    ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off), and
    ``lu_tile`` with and without the inverses on the headline's 23
    level-0 tiles and on config 2's one-tile level 0;
 10. the chain kernel (B5, ``bidiag_ldiv``) against its plain version on
     seeded random bands (|a| <= 0.9) at n in {7, 128, 257, 5000, 20000,
-    1,048,577} and R in {1, 3, 16}, float32 and float64, both sweeps and
-    each alone (bound: max relative difference 1e-5 / 1e-12); on config
+    1,048,577} and R in {1, 3, 16} (and 64 up to n = 20,000, 300 at
+    n = 257), float32 and float64, both sweeps and each alone (bound: max
+    relative difference 1e-5 / 1e-12), bit for bit equal to itself at
+    grids 1 and 7 and under 30 CUDA-graph replays; on config
     1's real float32 planes (a chain of near-unit multipliers) kernel and
     plain against the float64 scan of the same planes (1e-4); and
     ``wave_apply_bf16`` against its plain version on the headline's real
@@ -85,8 +96,9 @@ Phases, one line of output each; any failure raises and exits non-zero:
     callable within 1e-12 of the new matrix's ``spsolve`` in <= 3 sweeps
     and the old one refused;
 13. timing (CUDA events, medians): config 1's ``ldiv`` at R = 1 and 16
-    through the chain kernel, its plain scan and the tile waves;
-    ``bidiag_ldiv`` at n = 1,048,577; the headline ``ldiv`` at R = 16 with
+    through the chain kernel (eager and by graph replay), its plain scan
+    and the tile waves; ``bidiag_ldiv`` at n = 1,048,577, float32 and
+    float64, eager and by replay; the headline ``ldiv`` at R = 16 with
     the bfloat16 stream against float32 (one launch each, eager and by
     graph replay, and the 32-launch route beside them), its waves against
     their plain version; and ``make_f64_ldiv`` at R = 16 with the fewest
@@ -98,7 +110,8 @@ library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
 ``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-13, with
 no result line (for iterating on one kernel: 2,3,5 for the ldiv kernels,
-6,9 for the refactorization kernels).
+6,9 for the refactorization kernels and the assembly, 10,11,13 for the
+chain kernel).
 """
 
 import json
@@ -132,6 +145,10 @@ KERNELS = {
                    "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
     "span_gather": ("tpu_sparse_lu_torch/csrc/span_gather.cu",
                     "tpu_sparse_lu/ops/pallas_span.py:72"),
+    "assemble_tiles": ("tpu_sparse_lu_torch/csrc/assemble.cu",
+                       "tpu_sparse_lu/ops/pallas_span.py:72"),
+    "assemble_closure": ("tpu_sparse_lu_torch/csrc/assemble.cu",
+                         "tpu_sparse_lu/ops/pallas_span.py:72"),
     "lu_tile": ("tpu_sparse_lu_torch/csrc/lu_tile.cu",
                 "tpu_sparse_lu/ops/pallas_factor.py:38"),
     "tile_mm": ("tpu_sparse_lu_torch/csrc/elim.cu",
@@ -153,6 +170,12 @@ GRAPH_REPLAYS = 30
 # BASELINE config 1 (bench.py:225-241): the 1-D chain, single RHS
 CONFIG1 = dict(n=20000, chunk_size=128)
 CHAIN_NS = (7, 128, 257, 5000, 20000, 1_048_577)
+CHAIN_RS = (1, 3, 16)
+# the assembly's two kernels (B4), in launch order
+ASSEMBLY = ("assemble_tiles", "assemble_closure")
+# grid sizes the chain kernel is held bit for bit equal at (besides the
+# default, as many blocks as the card holds at once)
+CHAIN_GRIDS = (1, 7)
 # make_f64_ldiv sweeps tried with the bfloat16 stream at the headline:
 # each contracts the error by ~0.03 there (kappa(A) ~ 6e3 against bf16's
 # 8-bit mantissa), so 1e-12 takes ~6-8 sweeps
@@ -264,6 +287,10 @@ LIBRARY = {
                "not timed",
     "wave_apply_bf16": "none: a gather-product-scatter per wave",
     "bidiag_ldiv": "none: two affine prefix scans",
+    "assemble_tiles": "none: a span gather, per-tile scatters, block-row "
+                      "maxima and a transposed write in one pass",
+    "assemble_closure": "none: a row gather times a per-row reciprocal, "
+                        "then scattered ones",
     "ldiv_fused": "none: the whole solve in one launch",
     "ldiv_fused_bf16": "none: the whole solve in one launch",
 }
@@ -708,8 +735,9 @@ def _same_pattern(rng, A, scale=0.05):
     return A2
 
 
-def _real_store(F, A, plain: bool):
-    """The assembled store of F's refactor plan from the values of A."""
+def _real_store(F, A, plain: bool = False, yardstick: bool = False):
+    """The assembled store of F's refactor plan from the values of A: the
+    two assembly kernels, the yardstick route or the plain route."""
     import torch
 
     from tpu_sparse_lu_torch.assemble import assemble
@@ -717,7 +745,54 @@ def _real_store(F, A, plain: bool):
     dev = F._refactor_dev
     a = torch.as_tensor(A.tocsc().data, dtype=F.dtype, device="cuda")
     return assemble(a, dev.asm, n=dev.n, cs=dev.cs, TF=dev.TF, TF2=dev.TF2,
-                    plain=plain)
+                    plain=plain, yardstick=yardstick)
+
+
+def _assembly_equal(F, A, tag):
+    """The two assembly kernels bit for bit equal to the yardstick and
+    the plain routes on F's plan and A's values; returns TF."""
+    import torch
+
+    got = _real_store(F, A)
+    for kw in ({"yardstick": True}, {"plain": True}):
+        ref = _real_store(F, A, **kw)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{tag}: the assembly kernels differ from "
+                                 f"the {sorted(kw)[0]} route")
+    return F._refactor_plan.TF
+
+
+def _assembly_checks(quick: bool = False) -> str:
+    """The assembly kernels against the yardstick and plain routes on
+    seeded random patterns at cs 16 and 128 (colamd, and nd for its
+    identity entries) and on both deployments' real stores, float32 and
+    float64 (``quick``: float32, cs 128 and the headline)."""
+    import scipy.sparse as sp
+
+    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
+
+    rng = np.random.default_rng(21)
+    seen = []
+    for dt in ("float32",) if quick else ("float32", "float64"):
+        for cs, n, ordering in ((16, 300, "colamd"), (128, 900, "colamd"),
+                                (128, 900, "nd"))[1 if quick else 0:]:
+            A = (sp.random(n, n, density=0.01, random_state=rng,
+                           format="csc") + 10 * sp.eye(n, format="csc"))
+            F = ParallelSparseLU(A, config=SolverConfig(
+                chunk_size=cs, ordering=ordering, nd_cutoff=64, dtype=dt),
+                device="cuda")
+            F.enable_device_refactor()
+            seen.append(f"random cs={cs} {ordering} {dt} TF="
+                        + str(_assembly_equal(F, A, f"random cs={cs} {dt}")))
+        for name in ("headline",) if quick else ("headline", "config2"):
+            if name == "headline":
+                A, F = _device_headline(dt)
+            else:
+                A, F = _config2_solver(dt)
+                F.enable_device_refactor()
+            seen.append(f"{name} {dt} TF={_assembly_equal(F, A, name)}")
+    return "bit for bit with the yardstick and plain routes: " + \
+        ", ".join(seen)
 
 
 def _elim_products(store, linv, uinv, sched, mm):
@@ -843,7 +918,8 @@ def phase_refactor_kernels_vs_plain():
             elimination.pick_tile = pick
 
     # the real stores of both deployments, float32 and float64
-    err = {"span_gather": 0.0, "lu_tile": 0.0, "tile_mm": 0.0}
+    err = {"span_gather": 0.0, "lu_tile": 0.0, "tile_mm": 0.0,
+           "assemble_tiles": 0.0, "assemble_closure": 0.0}
     real = {}
     for name in ("headline", "config2"):
         for dt in ("float32", "float64"):
@@ -854,11 +930,7 @@ def phase_refactor_kernels_vs_plain():
                 F.enable_device_refactor()
             rp = F._refactor_plan
             TF = rp.TF
-            sk, rk = _real_store(F, A, plain=False)
-            sp_, rp_ = _real_store(F, A, plain=True)
-            if not (torch.equal(sk, sp_) and torch.equal(rk, rp_)):
-                raise AssertionError(f"{name} {dt}: assembly with the span "
-                                     f"kernel differs from plain")
+            sp_, _ = _real_store(F, A, plain=True)
             # the first level's diagonal tiles alone through lu_tile, with
             # both inverses, then the LU alone
             lvl0 = F._refactor_dev.elim.levels[0]
@@ -894,8 +966,9 @@ def phase_refactor_kernels_vs_plain():
                           sum(len(g[2]) - len(g[0]) for g in rp.schur_groups))
             del F
     torch.cuda.synchronize()
+    asm = _assembly_checks()
     print(f"phase 6 refactor kernels vs plain: span_gather bit-exact "
-          f"(random + both real assemblies); max rel diff lu_tile f32 "
+          f"(random); assembly kernels {asm}; max rel diff lu_tile f32 "
           f"{worst['lu_tile']['float32']:.3e} f64 "
           f"{worst['lu_tile']['float64']:.3e} (bounds {LU_TOL['float32']:g}"
           f"/{LU_TOL['float64']:g}); elimination f32 "
@@ -913,6 +986,7 @@ def phase_refactor_kernels_vs_plain():
 def _reset_launches(*names):
     """Set every kernel's launch count to 0; returns a reader of the
     counts of ``names``."""
+    from tpu_sparse_lu_torch.ops import assembly
     from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
@@ -925,7 +999,9 @@ def _reset_launches(*names):
            "span_gather": span_gather, "lu_tile": lu_tile,
            "tile_mm": tile_mm, "wave_apply_bf16": wave_apply_bf16,
            "bidiag_ldiv": bidiag_ldiv, "ldiv_fused": fused_ldiv,
-           "ldiv_fused_bf16": fused_ldiv_bf16}
+           "ldiv_fused_bf16": fused_ldiv_bf16,
+           "assemble_tiles": assembly.assemble_tiles,
+           "assemble_closure": assembly.assemble_closure}
     for f in fns.values():
         f.LAUNCHES = 0
     return lambda: {k: fns[k].LAUNCHES for k in names}
@@ -937,8 +1013,8 @@ def phase_device_lifecycle():
 
     rng = np.random.default_rng(5)
     R = HEADLINE["R"]
-    read = _reset_launches("ldiv_fused", "span_gather", "lu_tile", "tile_mm",
-                           "perm_gather", "wave_apply")
+    read = _reset_launches("ldiv_fused", *ASSEMBLY, "lu_tile", "tile_mm",
+                           "span_gather", "perm_gather", "wave_apply")
     t0 = time.perf_counter()
     A, F = _device_headline("float32")
     torch.cuda.synchronize()
@@ -983,12 +1059,27 @@ def phase_device_lifecycle():
     torch.cuda.synchronize()
     launches = read()
     # four checked ldiv calls (two refined) and the refined step: 8 solves
-    waves = {k: launches.pop(k) for k in ("perm_gather", "wave_apply")}
+    waves = {k: launches.pop(k)
+             for k in ("span_gather", "perm_gather", "wave_apply")}
     if (min(launches.values()) == 0 or launches["ldiv_fused"] != 8
             or any(waves.values())):
         raise AssertionError(f"device lifecycle did not launch every "
-                             f"kernel, or not one ldiv_fused per solve: "
-                             f"{launches}, {waves}")
+                             f"kernel, or not one ldiv_fused per solve, or "
+                             f"a yardstick: {launches}, {waves}")
+    # the yardstick assembly on the last values, bit for bit (it launches
+    # span_gather once; no entry point does since the assembly kernels)
+    a_last = F._a64.to(F.dtype)
+    dev = F._refactor_dev
+    kw = dict(n=dev.n, cs=dev.cs, TF=dev.TF, TF2=dev.TF2)
+    from tpu_sparse_lu_torch.assemble import assemble
+
+    mine, yard = (assemble(a_last, dev.asm, yardstick=y, **kw)
+                  for y in (False, True))
+    if not all(torch.equal(p, q) for p, q in zip(mine, yard)):
+        raise AssertionError("the assembly kernels differ from the yardstick "
+                             "on the lifecycle's values")
+    torch.cuda.synchronize()
+    launches["span_gather"] = read()["span_gather"]
     _, F64 = _device_headline("float64")
     A3 = _same_pattern(rng, A)
     F64.refactor_numeric(A3)
@@ -1017,8 +1108,8 @@ def phase_config2_step():
     import torch
 
     rng = np.random.default_rng(6)
-    read = _reset_launches("ldiv_fused", "span_gather", "lu_tile", "tile_mm",
-                           "perm_gather", "wave_apply")
+    read = _reset_launches("ldiv_fused", *ASSEMBLY, "span_gather", "lu_tile",
+                           "tile_mm", "perm_gather", "wave_apply")
     A, F = _config2_solver()
     step = F.make_refactor_solve_step()
     A_chk = A.copy()
@@ -1040,8 +1131,9 @@ def phase_config2_step():
                              f"(per column max {e:.3e})")
     torch.cuda.synchronize()
     launches = read()
-    if (launches["ldiv_fused"], launches["perm_gather"],
-            launches["wave_apply"]) != (1, 0, 0):
+    if ((launches["ldiv_fused"], launches["span_gather"],
+         launches["perm_gather"], launches["wave_apply"]) != (1, 0, 0, 0)
+            or any(launches[k] != 1 for k in ASSEMBLY)):
         raise AssertionError(f"config-2 step launched {launches}")
     rp = F._refactor_plan
     print(f"phase 8 config 2 fused step: n={A.shape[0]} nnz={A.nnz} "
@@ -1130,6 +1222,8 @@ def phase_refactor_timing(A2c, F2c, step, smi):
                        nb * 4 / 3 * cs ** 3)
     ms.update(_refactor_device_times(
         (("headline", F, A), ("config2", F2c, A2c)), ms, smi))
+    ms.update(_assembly_times((("headline", F, A), ("config2", F2c, A2c)),
+                              ms, smi))
     # the library calls of B4 and B2 at the same shapes, device times
     g, lo, hi = (x.long() for x in sg)
     k = torch.arange(cs, device="cuda")
@@ -1179,6 +1273,84 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"{ms['lu_tile_config2_device']:.4f} ms, LU alone "
           f"{ms['lu_tile_config2_device_lu']:.4f} ms")
     return ms
+
+
+def _assembly_times(deployments, ms, smi):
+    """The assembly alone, its two kernels against the yardstick route
+    (eager and by CUDA-graph replay), the extraction (the pipeline less the
+    elimination and the assembly, by replay) on each deployment; each
+    assembly kernel alone at the headline (replay) and its plain twin
+    (eager), with the work of each."""
+    import torch
+
+    from tpu_sparse_lu_torch.assemble import assemble
+    from tpu_sparse_lu_torch.ops import assembly as AS
+
+    out = {}
+    for name, Fx, Ax in deployments:
+        dev = Fx._refactor_dev
+        a = torch.as_tensor(Ax.data, dtype=torch.float32, device="cuda")
+        kw = dict(n=dev.n, cs=dev.cs, TF=dev.TF, TF2=dev.TF2)
+        for key, yard in (("assembly", False), ("assembly_yardstick", True)):
+            def fn():
+                return assemble(a, dev.asm, yardstick=yard, **kw)
+            out[f"{key}_{name}_graph"] = _graph_ms(fn)
+            out[f"{key}_{name}"] = _median_ms(lambda _: fn(), reps=30)
+        out[f"extraction_{name}_graph"] = (
+            ms[f"refactor_{name}_graph"] - ms[f"elimination_{name}_graph"]
+            - out[f"assembly_{name}_graph"])
+        if name != "headline":
+            continue
+        # each kernel alone on the headline's real inputs
+        rows2, rowmax = AS.assemble_tiles(a, dev.asm, dev.cs, dev.TF2)
+        store, rs = AS.assemble_closure(rows2, rowmax, dev.asm, dev.n,
+                                        dev.cs, dev.TF)
+        calls = {
+            "assemble_tiles": (AS.assemble_tiles, AS.assemble_tiles_plain,
+                               (a, dev.asm, dev.cs, dev.TF2)),
+            "assemble_closure": (AS.assemble_closure,
+                                 AS.assemble_closure_plain,
+                                 (rows2, rowmax, dev.asm, dev.n, dev.cs,
+                                  dev.TF)),
+        }
+        for k, (fn, plain, args) in calls.items():
+            out[f"{k}_device"] = _graph_ms(lambda: fn(*args))
+            out[k] = _median_ms(lambda _: fn(*args))
+            out[f"{k}_plain"] = _median_ms(lambda _: plain(*args), reps=20)
+        asm = dev.asm
+        idx = lambda *keys: _nbytes(*(asm[k] for k in keys))  # noqa: E731
+        # each input read once, each output written once; one multiply per
+        # closure element and one reciprocal per row of rowmax
+        WORK["assemble_tiles"] = (
+            _nbytes(a, rows2, rowmax) + idx(
+                "k_tile_brow2", "span_g", "span_lo", "span_hi", "k_left_ptr",
+                "k_left_src", "k_left_pos", "k_ones_ptr", "k_ones_pos"), 0)
+        WORK["assemble_closure"] = (
+            _nbytes(rows2, rowmax, store, rs) + idx(
+                "k_permrow_src", "k_tile_brow2", "k_pad_ptr", "k_pad_pos"),
+            store.numel() + rowmax.numel())
+        out["assembly_bound_ms"] = (_nbytes(a, store, rs)
+                                    / HBM_BYTES_PER_S * 1e3)
+        out["assembly_store_mb"] = (_nbytes(rows2) / 1e6, _nbytes(store) / 1e6)
+    print(f"phase 9 assembly on {smi} (two kernels vs the yardstick "
+          f"span_gather + PyTorch route, ms eager / CUDA-graph replay): "
+          + "; ".join(
+              f"{n} {out[f'assembly_{n}']:.4f} / "
+              f"{out[f'assembly_{n}_graph']:.4f} vs "
+              f"{out[f'assembly_yardstick_{n}']:.4f} / "
+              f"{out[f'assembly_yardstick_{n}_graph']:.4f}, extraction "
+              f"{out[f'extraction_{n}_graph']:.4f} (pipeline "
+              f"{ms[f'refactor_{n}_graph']:.4f} less elimination "
+              f"{ms[f'elimination_{n}_graph']:.4f} less assembly)"
+              for n, _, _ in deployments)
+          + "; headline kernels alone, replay / eager / plain: "
+          + ", ".join(f"{k} {out[k + '_device']:.4f} / {out[k]:.4f} / "
+                      f"{out[k + '_plain']:.4f}" for k in ASSEMBLY)
+          + f"; bound (value stream read, closure store and Rs written) "
+          f"{out['assembly_bound_ms'] * 1e3:.2f} us; unpermuted / closure "
+          f"store {out['assembly_store_mb'][0]:.1f} / "
+          f"{out['assembly_store_mb'][1]:.1f} MB")
+    return out
 
 
 def _refactor_device_times(deployments, ms, smi):
@@ -1284,38 +1456,84 @@ def _random_planes(rng, n, tdt):
             (t(rng.uniform(-0.9, 0.9, n)), t(rng.uniform(0.5, 1.5, n))))
 
 
+def _bidiag_checks(quick: bool = False) -> str:
+    """``bidiag_ldiv`` against its plain version on seeded random planes
+    (``TOL``), both sweeps and each alone, at ``CHAIN_NS`` x ``CHAIN_RS``
+    (and R = 64 up to n = 20,000, R = 300 at n = 257), float32 and
+    float64; bit for bit equal to itself at ``CHAIN_GRIDS``; and
+    ``GRAPH_REPLAYS`` CUDA-graph replays, a fresh b copied in before
+    each, bit for bit equal to the eager solve. ``quick``: n in {257,
+    20000, 1,048,577}, R in {1, 16}, 10 replays."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import (
+        bidiag_ldiv, bidiag_ldiv_plain,
+    )
+
+    rng = np.random.default_rng(10)
+    worst = {"float32": 0.0, "float64": 0.0}
+    n_cases = 0
+    for dt in ("float32", "float64"):
+        tdt = getattr(torch, dt)
+        for n in (257, 20000, 1_048_577) if quick else CHAIN_NS:
+            lower, upper = _random_planes(rng, n, tdt)
+            Rs = (1, 16) if quick else (
+                CHAIN_RS + ((64,) if n <= 20000 else ())
+                + ((300,) if n == 257 else ()))
+            for R in Rs:
+                b = torch.as_tensor(rng.standard_normal((n, R)), dtype=tdt,
+                                    device="cuda")
+                for planes in ({"lower": lower, "upper": upper},
+                               {"lower": lower}, {"upper": upper}):
+                    tag = f"{dt}, n={n}, R={R}, {sorted(planes)}"
+                    got = bidiag_ldiv(b, **planes)
+                    r = _rel(got, bidiag_ldiv_plain(b, **planes))
+                    if not r <= TOL[dt]:
+                        raise AssertionError(
+                            f"bidiag_ldiv differs from plain: {r:.3e} > "
+                            f"{TOL[dt]:g} ({tag})")
+                    worst[dt] = max(worst[dt], r)
+                    for grid in CHAIN_GRIDS:
+                        if not torch.equal(bidiag_ldiv(b, grid=grid,
+                                                       **planes), got):
+                            raise AssertionError(f"bidiag_ldiv at grid "
+                                                 f"{grid} differs ({tag})")
+                    n_cases += 1
+    replays = 10 if quick else GRAPH_REPLAYS
+    for dt, n, R in (("float32", 20000, 16), ("float64", 1_048_577, 1)):
+        tdt = getattr(torch, dt)
+        lower, upper = _random_planes(rng, n, tdt)
+        sb = torch.zeros((n, R), dtype=tdt, device="cuda")
+        graph, out = _capture(lambda: bidiag_ldiv(sb, lower, upper))
+        for _ in range(replays):
+            bi = torch.as_tensor(rng.standard_normal((n, R)), dtype=tdt,
+                                 device="cuda")
+            sb.copy_(bi)
+            graph.replay()
+            if not torch.equal(out, bidiag_ldiv(bi, lower, upper)):
+                raise AssertionError(f"bidiag_ldiv {dt} n={n} R={R}: a graph "
+                                     f"replay differs from the eager solve")
+    torch.cuda.synchronize()
+    return (f"max rel diff from plain f32 {worst['float32']:.3e} f64 "
+            f"{worst['float64']:.3e} (bounds {TOL['float32']:g}/"
+            f"{TOL['float64']:g}) over {n_cases} cases, each bit for bit "
+            f"equal at grids {list(CHAIN_GRIDS)} and the default; "
+            f"{2 * replays} graph replays bit for bit with eager")
+
+
 def phase_chain_and_bf16_kernels_vs_plain():
     """Returns the max abs differences on the real inputs: config 1's
     planes at R = 1 (``bidiag_ldiv``) and the headline's waves with the
     bfloat16 stream (``wave_apply_bf16``)."""
     import torch
 
-    from tpu_sparse_lu_torch.ops.bidiag_ldiv import (
-        bidiag_ldiv, bidiag_ldiv_plain,
-    )
+    from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv_plain
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
         perm_gather_plain, wave_apply_bf16, wave_apply_plain,
     )
 
     rng = np.random.default_rng(10)
-    worst = {"float32": 0.0, "float64": 0.0}
-    for dt in ("float32", "float64"):
-        tdt = getattr(torch, dt)
-        for n in CHAIN_NS:
-            lower, upper = _random_planes(rng, n, tdt)
-            for R in (1, 3, 16):
-                b = torch.as_tensor(rng.standard_normal((n, R)), dtype=tdt,
-                                    device="cuda")
-                for planes in ({"lower": lower, "upper": upper},
-                               {"lower": lower}, {"upper": upper}):
-                    r = _rel(bidiag_ldiv(b, **planes),
-                             bidiag_ldiv_plain(b, **planes))
-                    if not r <= TOL[dt]:
-                        raise AssertionError(
-                            f"bidiag_ldiv differs from plain: {r:.3e} > "
-                            f"{TOL[dt]:g} ({dt}, n={n}, R={R}, "
-                            f"{sorted(planes)})")
-                    worst[dt] = max(worst[dt], r)
+    chain = _bidiag_checks()
     # the real planes of config 1, float32, R = 1
     A, F = _config1_solver()
     sp_ = F._scan_planes
@@ -1361,10 +1579,8 @@ def phase_chain_and_bf16_kernels_vs_plain():
     if not rel_bf <= TOL["float32"]:
         raise AssertionError(f"headline bf16 waves: kernel differs from "
                              f"plain {rel_bf:.3e}")
-    print(f"phase 10 chain + bf16 kernels vs plain: bidiag_ldiv max rel diff "
-          f"random f32 {worst['float32']:.3e} f64 {worst['float64']:.3e} "
-          f"(bounds 1e-5/1e-12; n in {list(CHAIN_NS)}, R in [1, 3, 16], "
-          f"both sweeps and each alone); config 1 real planes R=1 "
+    print(f"phase 10 chain + bf16 kernels vs plain: bidiag_ldiv {chain}; "
+          f"config 1 real planes R=1 "
           f"kernel vs plain {rel_chain:.3e} (bound {2 * CHAIN_REAL_TOL:g}), "
           f"max abs {err['bidiag_ldiv']:.3e}, vs the float64 scan kernel "
           f"{acc['kernel']:.3e} (bound {CHAIN_REAL_TOL:g}) plain "
@@ -1581,6 +1797,7 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
         b = torch.as_tensor(rng.random((F1.n, R)), dtype=torch.float32,
                             device="cuda")
         ms[f"c1_chain_R{R}"] = _median_ms(lambda _: F1._chain_solve(b))
+        ms[f"c1_chain_R{R}_device"] = _graph_ms(lambda: F1._chain_solve(b))
         ms[f"c1_plain_R{R}"] = _median_ms(
             lambda _: F1._chain_solve(b, plain=True), reps=20)
         ms[f"c1_tile_R{R}"] = _median_ms(lambda _: F1._direct_solve(b),
@@ -1592,17 +1809,22 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     waves_launches = sum(read().values())
     ms["bidiag_ldiv"], ms["bidiag_ldiv_plain"] = (ms["c1_chain_R1"],
                                                   ms["c1_plain_R1"])
+    ms["bidiag_ldiv_device"] = ms["c1_chain_R1_device"]
     n = CHAIN_NS[-1]
-    lower, upper = _random_planes(rng, n, torch.float32)
-    for R in (1, 16):
-        b = torch.as_tensor(rng.random((n, R)), dtype=torch.float32,
-                            device="cuda")
-        ms[f"big_R{R}"] = _median_ms(
-            lambda _: bidiag_ldiv(b, lower=lower, upper=upper), reps=10,
-            warmup=2)
-        ms[f"big_plain_R{R}"] = _median_ms(
-            lambda _: bidiag_ldiv_plain(b, lower=lower, upper=upper), reps=5,
-            warmup=1)
+    for dt in (torch.float32, torch.float64):
+        lower, upper = _random_planes(rng, n, dt)
+        for R in (1, 16):
+            b = torch.as_tensor(rng.random((n, R)), dtype=dt, device="cuda")
+            key = f"big_{str(dt)[6:]}_R{R}"
+            ms[key] = _median_ms(
+                lambda _: bidiag_ldiv(b, lower=lower, upper=upper), reps=20,
+                warmup=2)
+            ms[key + "_device"] = _graph_ms(
+                lambda: bidiag_ldiv(b, lower=lower, upper=upper))
+            if dt == torch.float32:
+                ms[f"big_plain_R{R}"] = _median_ms(
+                    lambda _: bidiag_ldiv_plain(b, lower=lower, upper=upper),
+                    reps=5, warmup=1)
     # the headline: bfloat16 stream against float32
     R = HEADLINE["R"]
     A, F = _headline_solver("float32")
@@ -1647,16 +1869,22 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     # row per sweep
     WORK["bidiag_ldiv"] = (_nbytes(*F1._scan_planes.values()) + 2 * F1.n * 4,
                            4 * F1.n)
+    big = ", ".join(
+        f"{dt} R={R} {ms[f'big_{dt}_R{R}']:.4f} / "
+        f"{ms[f'big_{dt}_R{R}_device']:.4f}"
+        for dt in ("float32", "float64") for R in (1, 16))
     print(f"phase 13 chain + bf16 timing on {smi}: config 1 ldiv R=1 chain "
-          f"kernel {ms['c1_chain_R1']:.4f} ms, plain scan "
+          f"kernel {ms['c1_chain_R1']:.4f} ms eager, "
+          f"{ms['c1_chain_R1_device']:.4f} ms by graph replay, plain scan "
           f"{ms['c1_plain_R1']:.4f} ms, tile solve in one ldiv_fused launch "
           f"{ms['c1_tile_R1']:.4f} ms, in {waves_launches} launches "
           f"{ms['c1_route32_R1']:.4f} ms; R=16 {ms['c1_chain_R16']:.4f} / "
+          f"{ms['c1_chain_R16_device']:.4f} / "
           f"{ms['c1_plain_R16']:.4f} / {ms['c1_tile_R16']:.4f} / "
           f"{ms['c1_route32_R16']:.4f} ms; "
-          f"bidiag_ldiv n={n} R=1 {ms['big_R1']:.4f} ms (plain "
-          f"{ms['big_plain_R1']:.4f}), R=16 {ms['big_R16']:.4f} ms (plain "
-          f"{ms['big_plain_R16']:.4f}); headline ldiv R={R}, eager / graph "
+          f"bidiag_ldiv n={n}, eager / graph replay: {big} ms (plain f32 "
+          f"R=1 {ms['big_plain_R1']:.4f}, R=16 {ms['big_plain_R16']:.4f}); "
+          f"headline ldiv R={R}, eager / graph "
           f"replay, one launch and 32 launches: f32 stream "
           f"{ms['ldiv_f32']:.4f} / {ms['ldiv_f32_device']:.4f} and "
           f"{ms['ldiv_f32_route32']:.4f} / {ms['ldiv_f32_route32_device']:.4f}"
@@ -1746,10 +1974,12 @@ def main() -> int:
     bf_launches, f32_steps, bf_steps = phase_f64_tier()
     launches.update(bf_launches)
     ms.update(phase_chain_bf16_timing(smi, f32_steps, bf_steps))
-    # a kernel with a library yardstick is timed as it is, by CUDA-graph
-    # replay (device time); the others by eager CUDA events (host included)
+    # these kernels are timed by CUDA-graph replay (device time); the others
+    # by eager CUDA events (host included)
     graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",
              "tile_mm": "tile_mm_headline_device",
+             "bidiag_ldiv": "bidiag_ldiv_device",
+             **{k: k + "_device" for k in ASSEMBLY},
              "ldiv_fused": "ldiv_fused_device",
              "ldiv_fused_bf16": "ldiv_fused_bf16_device"}
     library = {"span_gather": "span_gather_library",

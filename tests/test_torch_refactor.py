@@ -43,6 +43,7 @@ from tpu_sparse_lu.ops.pallas_factor import lu_tile as jax_lu_tile
 from tpu_sparse_lu.ops.pallas_span import span_gather as jax_span_gather
 from tpu_sparse_lu.refactor import _blocked_elimination, _lu_nopivot
 from tpu_sparse_lu_torch.assemble import assemble, assembly_device_arrays
+from tpu_sparse_lu_torch.ops import assembly as tasm
 from tpu_sparse_lu_torch.ops.elimination import (
     TILE_SHAPES,
     eliminate,
@@ -270,6 +271,85 @@ def test_span_gather_plain_semantics(rng):
             if 0 <= s < 40:
                 want[i, k] = an[s]
     np.testing.assert_array_equal(got, want)
+
+
+def _grouped(dev, kind, cs):
+    """Flat positions ``tile·cs² + pos`` of a per-tile grouping."""
+    ptr = dev[f"k_{kind}_ptr"].numpy().astype(np.int64)
+    tile = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+    return tile * cs * cs + dev[f"k_{kind}_pos"].numpy()
+
+
+@pytest.mark.parametrize("case", sorted(ASSEMBLY_CASES))
+def test_assembly_groups_every_entry_in_its_tile(rng, case):
+    """The kernels' per-tile groupings hold every leftover and nd one (by
+    unpermuted tile) and every pad (by closure tile) once, at its own
+    place, in the plan's order within a tile."""
+    make, cs = ASSEMBLY_CASES[case]
+    A = sp.csc_matrix(make(rng))
+    _, tf = _enabled_pair(A, chunk_size=cs, dtype="float64")
+    rp = tf._refactor_plan
+    dev = assembly_device_arrays(rp.asm, rp.cs, rp.TF, "cpu")
+    for kind, rows, cols, src, n_tiles in (
+            ("left", "left_row", "left_col", "left_src", rp.asm.TF2 + 1),
+            ("ones", "ones_row", "ones_col", None, rp.asm.TF2 + 1),
+            ("pad", "pad_row", "pad_col", None, rp.TF + 2)):
+        ptr = dev[f"k_{kind}_ptr"].numpy()
+        assert ptr.shape == (n_tiles + 1,) and ptr[0] == 0
+        assert (np.diff(ptr) >= 0).all()
+        want = dev[rows].numpy() * cs + dev[cols].numpy()
+        got = _grouped(dev, kind, cs)
+        assert ptr[-1] == len(want) and (dev[f"k_{kind}_pos"].numpy()
+                                         < cs * cs).all()
+        order = np.argsort(want // (cs * cs), kind="stable")
+        np.testing.assert_array_equal(got, want[order])
+        if src:
+            np.testing.assert_array_equal(dev["k_left_src"].numpy(),
+                                          dev[src].numpy()[order])
+    if case.startswith("poisson"):
+        assert dev["k_ones_pos"].numel() == 0  # no nd embedding here
+    assert dev["k_pad_pos"].numel() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(ASSEMBLY_CASES))
+def test_assembly_kernel_stages_match_jax(rng, case, dtype):
+    """The two kernels' stages in plain PyTorch (per-tile gather with its
+    own leftovers and ones and the block-row maxima, the closure with the
+    scales) equal the yardstick
+    route and JAX ``assemble_windowed`` bit for bit; so do the wrappers,
+    which run them on a CPU tensor and launch nothing."""
+    make, cs = ASSEMBLY_CASES[case]
+    A = sp.csc_matrix(make(rng))
+    jf, tf = _enabled_pair(A, chunk_size=cs, dtype=dtype)
+    rp = tf._refactor_plan
+    a = A.data.astype(dtype)
+    want_t, want_rs = map(np.asarray, _jax_assembly(jf, a))
+    dev = assembly_device_arrays(rp.asm, rp.cs, rp.TF, "cpu")
+    kw = dict(n=rp.n, cs=rp.cs, TF=rp.TF, TF2=rp.asm.TF2)
+    at = torch.as_tensor(a)
+    ref_t, ref_rs = assemble(at, dev, plain=True, **kw)
+    before = [f.LAUNCHES for f in (tasm.assemble_tiles,
+                                   tasm.assemble_closure)]
+    for fn in (tasm.assemble_store_plain, tasm.assemble_store):
+        got_t, got_rs = fn(at, dev, **kw)
+        assert torch.equal(got_t, ref_t) and torch.equal(got_rs, ref_rs)
+        np.testing.assert_array_equal(got_rs.numpy(), want_rs)
+        np.testing.assert_array_equal(got_t.numpy(), want_t)
+    assert [f.LAUNCHES for f in (tasm.assemble_tiles,
+                                 tasm.assemble_closure)] == before
+
+
+def test_assembly_wrappers_reject_other_devices():
+    meta = torch.zeros(16, device="meta")
+    i32 = torch.zeros(2, dtype=torch.int32)
+    dev = {k: i32 for k in ("span_g", "span_lo", "span_hi")}
+    with pytest.raises(ValueError, match="device type 'meta'"):
+        tasm.assemble_tiles(meta, dev, 4, 0)
+    with pytest.raises(ValueError, match="device type 'meta'"):
+        tasm.assemble_closure(meta, meta, dev, 4, 4, 0)
+    with pytest.raises(ValueError, match="several devices"):
+        tasm.assemble_closure(meta, torch.zeros(4), dev, 4, 4, 0)
 
 
 # ---------------------------------------------------------------------------

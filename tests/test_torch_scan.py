@@ -27,7 +27,13 @@ from tpu_sparse_lu.ops.scan_solve import (
     pallas_bidiag_ldiv,
     scan_bidiag_solve,
 )
-from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv, bidiag_ldiv_plain
+from tpu_sparse_lu_torch.ops.bidiag_ldiv import (
+    bidiag_ldiv,
+    bidiag_ldiv_plain,
+    bidiag_ldiv_tiled_plain,
+    chain_words,
+    tile_rows,
+)
 from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather, wave_apply
 from tpu_sparse_lu_torch.ops.scan_solve import bidiag_bands, chain_planes
 
@@ -356,3 +362,123 @@ def test_bidiag_ldiv_rejects_bad_inputs():
         bidiag_ldiv(b.to("meta"), lower=(a.to("meta"), s.to("meta")))
     with pytest.raises(ValueError, match="several devices"):
         bidiag_ldiv(b, lower=(a.to("meta"), s))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's tiling (csrc/bidiag.cu), mirrored step by step
+# ---------------------------------------------------------------------------
+
+# tile sizes per n: one tile, many tiles that divide n or not, a ragged
+# last tile, and the wrapper's own choice
+TILINGS = {
+    "one": lambda n: n,
+    "many": lambda n: max(1, n // 8),
+    "ragged": lambda n: max(1, n // 8) + 1,
+    "default": lambda n: None,
+}
+_JAX_CHAIN = {}
+
+
+def _jax_chain(n, dtype, R):
+    """Seeded planes (Rs folded into sL), b (n, R) and the JAX Pallas
+    kernel's solve of each column in interpret mode, made once."""
+    key = (n, np.dtype(dtype).name, R)
+    if key not in _JAX_CHAIN:
+        rng = np.random.default_rng(n + 17 * R)
+        aL, sL, aU, sU = _random_planes(rng, n, dtype)
+        aL[0] = aU[-1] = 0.0
+        sL = (sL * rng.uniform(0.5, 2.0, n)).astype(dtype)  # Rs folded in
+        b = rng.standard_normal((n, R)).astype(dtype)
+        S = -(-n // 128)
+        planes = [jnp.asarray(pack_bands_2d(v, 0.0, S))
+                  for v in (aL, sL, aU, sU)]
+        want = np.stack([
+            np.asarray(pallas_bidiag_ldiv(
+                *planes, jnp.asarray(pack_bands_2d(b[:, j], 0.0, S)), n=n,
+                interpret=True)).reshape(-1)[:n] for j in range(R)], 1)
+        _JAX_CHAIN[key] = ([torch.as_tensor(v) for v in (aL, sL, aU, sU)],
+                           torch.as_tensor(b), want)
+    return _JAX_CHAIN[key]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("tiling", sorted(TILINGS))
+@pytest.mark.parametrize("n", [7, 128, 257, 5000])
+def test_tiled_mirror_matches_pallas_bidiag_ldiv(n, tiling, R, dtype):
+    """The kernel's tiles, chunks, fixed-order composition and serial walk
+    give the JAX Pallas kernel's solve, at the scan tolerances."""
+    t, b, want = _jax_chain(n, dtype, R)
+    got = bidiag_ldiv_tiled_plain(b, lower=(t[0], t[1]), upper=(t[2], t[3]),
+                                  rows=TILINGS[tiling](n))
+    assert got.shape == (n, R) and got.dtype == b.dtype
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_tiled_mirror_matches_scan_bidiag_solve(rng, lower):
+    """One sweep (lsolve/rsolve of a chain), R = 3, float64, ragged
+    tiles."""
+    n = 300
+    diag = rng.uniform(1.0, 2.0, n)
+    off = rng.uniform(-0.9, 0.9, n)
+    b = rng.random((n, 3))
+    want = np.asarray(scan_bidiag_solve(jnp.asarray(diag), jnp.asarray(off),
+                                        jnp.asarray(b), lower=lower))
+    band = {"diag": diag, "off": off}
+    planes = chain_planes(band, band, None, np.float64)
+    kw = ({"lower": (torch.as_tensor(planes["aL"]),
+                     torch.as_tensor(planes["iL"]))} if lower else
+          {"upper": (torch.as_tensor(planes["aU"]),
+                     torch.as_tensor(planes["sU"]))})
+    for rows in (37, 300):
+        got = bidiag_ldiv_tiled_plain(torch.as_tensor(b), rows=rows, **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_tiled_mirror_column_groups(rng):
+    """More than 256 columns: the kernel walks them in groups of at most
+    256 (two groups here, of 256 and 44), against a serial loop."""
+    n, R = 40, 300
+    aL, sL, aU, sU = _random_planes(rng, n, np.float64)
+    b = rng.standard_normal((n, R))
+    y = np.zeros_like(b)
+    for i in range(n):
+        y[i] = (aL[i] * y[i - 1] if i else 0.0) + sL[i] * b[i]
+    x = np.zeros_like(b)
+    for i in range(n - 1, -1, -1):
+        x[i] = (aU[i] * x[i + 1] if i < n - 1 else 0.0) + sU[i] * y[i]
+    t = [torch.as_tensor(v) for v in (aL, sL, aU, sU)]
+    got = bidiag_ldiv_tiled_plain(torch.as_tensor(b), lower=(t[0], t[1]),
+                                  upper=(t[2], t[3]), rows=9)
+    np.testing.assert_allclose(got.numpy(), x, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,R,tiles", [
+    (20000, 1, 32), (20000, 16, 79), (1_048_577, 1, 257),
+    (1_048_577, 16, 456), (1_048_577, 64, 497), (7, 3, 7)])
+def test_tile_rows_policy(n, R, tiles):
+    """Config 1 spreads over at least 32 tiles; long vectors take tiles of
+    whole chunks, at most 512 a sweep."""
+    rows = tile_rows(n, R)
+    assert -(-n // rows) == tiles
+    assert -(-n // rows) <= 512
+
+
+def test_chain_words_per_stream():
+    """One set of words and aggregate scratch per stream, made once."""
+    a = chain_words(4, 3, torch.float32, "cpu", 11)
+    b = chain_words(4, 3, torch.float32, "cpu", 12)
+    assert a[0] is not b[0] and a[1] is not b[1]
+    assert a[0] is chain_words(4, 3, torch.float32, "cpu", 11)[0]
+    assert chain_words(4, 3, torch.float32, "cpu")[0] is chain_words(
+        4, 3, torch.float32, "cpu", 0)[0]
+    for s in (a, b, chain_words(6, 3, torch.float64, "cpu", 11)):
+        assert s[0].tolist()[:3] == [0, 0, 1] and not s[0][3:].any()
+        assert s[0].dtype == torch.int32
+    assert a[0].numel() == 3 + 2 * 4 and a[1].numel() == 4 * (3 + 1)
+    assert chain_words(6, 3, torch.float64, "cpu", 11)[1].dtype == \
+        torch.float64

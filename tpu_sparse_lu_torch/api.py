@@ -22,7 +22,7 @@ packed tiles, their inverses and the solves live on ``device``. A solve on
 a CUDA device is one launch of the hand-written kernel of
 ``ops/fused_ldiv.py`` (``fused_ldiv``) — or, for bidiagonal factors (1-D
 chains), the one of ``ops/bidiag_ldiv.py`` — and a device
-refactorization runs those of ``ops/span_gather.py``,
+refactorization runs those of ``ops/assembly.py``,
 ``ops/lu_tile.py`` and ``ops/elimination.py``.
 """
 

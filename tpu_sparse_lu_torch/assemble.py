@@ -6,8 +6,7 @@ dense tile store as ``(Rs·A)[p, q]`` (the reference's ``fill_chunks!``
 scatter, src:180-243, with UMFPACK's per-``lu!`` row-scaling recompute,
 src:263). It runs in stages, all planned once on the host:
 
-1. **Span gather** (kernel B4, :func:`~tpu_sparse_lu_torch.ops.span_gather.
-   span_gather`): the unpermuted store is built TRANSPOSED,
+1. **Span gather** (kernel B4): the unpermuted store is built TRANSPOSED,
    ``(tile, col, row)``, so the nonzeros of one CSC column that fall in one
    tile are one contiguous run of the value stream and one row of the
    transposed store. Each store row is copied from its longest run; rows
@@ -22,6 +21,14 @@ src:263). It runs in stages, all planned once on the host:
    (``permrow_src``) into the closure store, then 7. the identity pads
    (tail diagonal of the last chunk, dummy tile).
 
+On a CUDA tensor :func:`assemble` runs them in two launches
+(``ops/assembly.py``, ``csrc/assemble.cu``): blocks over the unpermuted
+tiles for stages 1-3, the row maxima and the transpose; blocks over the
+closure tiles for stages 6-7 with the scaling. ``yardstick=True`` runs the
+route those launches replaced — ``span_gather`` (``csrc/span_gather.cu``)
+and a PyTorch op per stage — which they equal bit for bit; on a CPU tensor
+that route runs with the plain span gather.
+
 The JAX package's second front end, the W-shifted windowed gather
 (``win_src/win_dst/win_mask/left_*``), exists because row gathers cost
 the same at any width on the TPU; it is not ported (ROADMAP A14).
@@ -35,6 +42,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .ops.assembly import assemble_store
 from .ops.span_gather import span_gather, span_gather_plain
 
 __all__ = ["AssemblyPlan", "plan_assembly", "assemble"]
@@ -223,10 +231,25 @@ def _inside(rows: np.ndarray, cols: np.ndarray, n_rows: int, cs: int):
     return keep
 
 
+def _by_tile(rows: np.ndarray, cols: np.ndarray, n_tiles: int, cs: int):
+    """Group (row, col) positions of a ``(n_tiles·cs, cs)`` row view by
+    tile ``row // cs``, keeping their order within a tile: returns the
+    CSR offsets ``ptr`` (n_tiles + 1,), the order that sorts the
+    positions by tile, and each position within its tile,
+    ``(row % cs)·cs + col``."""
+    rows = np.asarray(rows, dtype=np.int64)
+    order = np.argsort(rows // cs, kind="stable")
+    ptr = np.searchsorted(rows[order] // cs, np.arange(n_tiles + 1))
+    pos = (rows[order] % cs) * cs + np.asarray(cols, dtype=np.int64)[order]
+    return ptr.astype(np.int32), order, pos.astype(np.int32)
+
+
 def assembly_device_arrays(plan: AssemblyPlan, cs: int, TF: int,
                            device) -> dict:
-    """Upload the assembly schedule once (int64 index tensors for the
-    PyTorch ops, int32 for the span kernel)."""
+    """Upload the assembly schedule once: int64 index tensors for the
+    PyTorch ops, int32 for the kernels, and (``k_*``) the kernels'
+    per-tile groupings of the leftovers and nd ones (by unpermuted tile)
+    and of the pads (by closure tile)."""
     n_rows2 = (plan.TF2 + 1) * cs
     n_rowsP = (TF + 2) * cs
 
@@ -236,7 +259,27 @@ def assembly_device_arrays(plan: AssemblyPlan, cs: int, TF: int,
     keep_l = _inside(plan.span_left_row, plan.span_left_col, n_rows2, cs)
     keep_o = _inside(plan.ones_row, plan.ones_col, n_rows2, cs)
     keep_p = _inside(plan.pad_row, plan.pad_col, n_rowsP, cs)
-    return {
+    left_ptr, left_ord, left_pos = _by_tile(
+        plan.span_left_row[keep_l], plan.span_left_col[keep_l],
+        plan.TF2 + 1, cs)
+    ones_ptr, _, ones_pos = _by_tile(plan.ones_row[keep_o],
+                                    plan.ones_col[keep_o], plan.TF2 + 1, cs)
+    pad_ptr, _, pad_pos = _by_tile(plan.pad_row[keep_p], plan.pad_col[keep_p],
+                                  TF + 2, cs)
+    i32 = torch.int32
+    kernel = {
+        "k_left_ptr": t(left_ptr, i32),
+        "k_left_src": t(plan.span_left_src[keep_l][left_ord], i32),
+        "k_left_pos": t(left_pos, i32),
+        "k_ones_ptr": t(ones_ptr, i32),
+        "k_ones_pos": t(ones_pos, i32),
+        "k_pad_ptr": t(pad_ptr, i32),
+        "k_pad_pos": t(pad_pos, i32),
+        "k_permrow_src": t(plan.permrow_src, i32),
+        "k_tile_brow2": t(plan.tile_brow2, i32),
+        "k_brow2_tiles": t(plan.brow2_tiles, i32),
+    }
+    return kernel | {
         "span_g": t(plan.span_g, torch.int32),
         "span_lo": t(plan.span_lo, torch.int32),
         "span_hi": t(plan.span_hi, torch.int32),
@@ -254,14 +297,19 @@ def assembly_device_arrays(plan: AssemblyPlan, cs: int, TF: int,
 
 
 def assemble(a_data: torch.Tensor, dev: dict, *, n: int, cs: int, TF: int,
-             TF2: int, plain: bool = False):
+             TF2: int, plain: bool = False, yardstick: bool = False):
     """Device assembly: ``a_data`` (value stream, original CSC order) →
     the permuted, equilibrated closure store ``(TF+2, cs, cs)`` and ``Rs``
     (length ``n``, factor row order == original row order of the factored
     matrix). No host synchronisation.
 
-    ``plain=True`` runs the span gather's plain PyTorch version.
+    On a CUDA tensor: the two launches of ``ops/assembly.py``.
+    ``yardstick=True`` runs ``span_gather`` and a PyTorch op per stage
+    instead, ``plain=True`` the same with the span gather's plain PyTorch
+    version (what a CPU tensor runs); all three agree bit for bit.
     """
+    if not (plain or yardstick or a_data.device.type == "cpu"):
+        return assemble_store(a_data, dev, n=n, cs=cs, TF=TF, TF2=TF2)
     dt = a_data.dtype
     n_rows = (TF2 + 1) * cs
     # 1. span gather from the stream front-padded by cs zeros

@@ -109,6 +109,34 @@ def bind_fused_ldiv(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bidiag(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/bidiag.cu``'s entries (also bound on
+    the side libraries of ``tools/chain_sweep.py``)."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"bidiag_ldiv_{dt}")
+        f.argtypes = [P] * 8 + [L, I, L, I, P]
+        f.restype = I
+        f = getattr(lib, f"bidiag_ldiv_{dt}_capacity")
+        f.argtypes = []
+        f.restype = I
+    return lib
+
+
+def bind_assembly(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/assemble.cu``'s entries (also bound on
+    the side libraries of ``tools/assemble_sweep.py``)."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"assemble_tiles_{dt}")
+        f.argtypes = [P] * 12 + [L, I, I, P]
+        f.restype = I
+        f = getattr(lib, f"assemble_closure_{dt}")
+        f.argtypes = [P] * 8 + [I, I, I, P]
+        f.restype = I
+    return lib
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for dt in ("f32", "f64"):
@@ -127,12 +155,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f = getattr(lib, f"tile_mm_{dt}")
         f.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         f.restype = I
-        f = getattr(lib, f"bidiag_ldiv_{dt}")
-        f.argtypes = [P, P, P, P, P, P, L, I, P]
-        f.restype = I
     lib.ldiv_wave_apply_bf16.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     lib.ldiv_wave_apply_bf16.restype = I
     bind_fused_ldiv(lib)
+    bind_bidiag(lib)
+    bind_assembly(lib)
     lib.ldiv_error_string.argtypes = [I]
     lib.ldiv_error_string.restype = ctypes.c_char_p
     lib.ldiv_max_chunk.argtypes = []

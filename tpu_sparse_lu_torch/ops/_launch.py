@@ -40,7 +40,8 @@ def device_kind(first: torch.Tensor, *rest: torch.Tensor) -> str:
     """``"cpu"`` or ``"cuda"`` when every tensor lies on that one device."""
     dev = first.device
     for t in rest:
-        require(t.device == dev,
+        if t.device != dev:  # no message built on the launch path
+            raise ValueError(
                 f"tensors on several devices: {dev} and {t.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device type {dev.type!r}")

@@ -3,7 +3,10 @@
 
 ``out[i, k] = a.flat[g[i] + k]`` for ``lo[i] <= k < hi[i]`` and 0
 elsewhere: the first stage of the refactorization's tile-store assembly
-(``assemble.py``), one store row per span of the CSC value stream. On a
+(``assemble.py``), one store row per span of the CSC value stream. The
+assembly's own kernels (``ops/assembly.py``) do this gather inside their
+first launch; this one serves the yardstick route
+(``assemble(..., yardstick=True)``) they are held to. On a
 CUDA tensor the wrapper launches ``csrc/span_gather.cu``; on a CPU tensor
 it runs :func:`span_gather_plain`. It is a pure copy, so both agree bit
 for bit. ``span_gather.LAUNCHES`` counts kernel launches.
