@@ -102,16 +102,42 @@ Phases, one line of output each; any failure raises and exits non-zero:
     the bfloat16 stream against float32 (one launch each, eager and by
     graph replay, and the 32-launch route beside them), its waves against
     their plain version; and ``make_f64_ldiv`` at R = 16 with the fewest
-    sweeps that meet 1e-12, float32 and bfloat16 streams.
+    sweeps that meet 1e-12, float32 and bfloat16 streams;
+14. ``tri_mode="trsm"`` and ``"inv_refine"`` on the headline (host
+    factorization): float64 ``ldiv``, ``ldiv`` after
+    ``refactor_numeric(1.01·A)`` and the fused ``make_refactor_solve_step``
+    on ``1.02·A`` within 1e-12 (relative 2-norm) of scipy's sparse LU
+    solve refined with an extended-precision residual (``"inv"`` beside
+    them at 1e-9; the fused step on seeded perturbed values, reported in
+    the three modes), ``lsolve``/``rsolve`` within 1e-12 of
+    ``spsolve_triangular``; float32 ``ldiv`` at R = 16 with
+    backward error < 1e-3, two ``perm_gather`` launches and the waves
+    (``wave_apply``: the off-diagonal waves, and under ``inv_refine`` the
+    diagonal ones twice) and no ``ldiv_fused`` per solve, the kernel path
+    within ``TOL`` of ``plain=True``; then each mode's ``ldiv`` at R = 16
+    beside ``"inv"``, float32 and float64, eager and by CUDA-graph replay
+    in two turns, the ``solve_triangular`` calls of one ``trsm`` solve
+    alone (its share), and ``tri_inverse`` of both factors' diagonal tiles
+    (the set-up the one bank layout costs ``trsm``);
+15. persistence on the headline (float32) and config 2: ``save`` full and
+    light (``values=False``) into a directory of the checkout removed
+    afterwards, ``from_saved`` on the card — the full reload's ``ldiv`` bit
+    for bit equal to the saved solver's and launching no kernel, the light
+    reload running the refactorization kernels and its ``ldiv`` bit for
+    bit equal to ``refactor_numeric(A)`` on the saved solver, both with
+    backward error < 1e-3 — and the headline's full file reloaded on the
+    CPU (within ``TOL``); file sizes, save, reload and construction
+    seconds, and the time a JAX light file's refactor plan takes to
+    rebuild.
 
 Then one JSON line on the kernels (each with its time, its bound from
 this run's bytes and FLOP against the card's published peaks, and its
 library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
-``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-13, with
+``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-15, with
 no result line (for iterating on one kernel: 2,3,5 for the ldiv kernels,
 6,9 for the refactorization kernels and the assembly, 10,11,13 for the
-chain kernel).
+chain kernel, 14,15 for the tri modes and persistence).
 """
 
 import json
@@ -1901,11 +1927,336 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: the tri modes, persistence
+# ---------------------------------------------------------------------------
+
+
+def _mode_solver(dtype: str, mode: str):
+    """The headline deployment (host factorization) at ``tri_mode=mode``;
+    returns (A, F, construction seconds)."""
+    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
+    from tpu_sparse_lu_torch.models import poisson_2d
+
+    A = poisson_2d(HEADLINE["nx"], HEADLINE["ny"])
+    cfg = SolverConfig(chunk_size=HEADLINE["chunk_size"],
+                       ordering=HEADLINE["ordering"],
+                       nd_cutoff=HEADLINE["nd_cutoff"], dtype=dtype,
+                       tri_mode=mode)
+    t0 = time.perf_counter()
+    F = ParallelSparseLU(A, config=cfg, device="cuda")
+    import torch
+
+    torch.cuda.synchronize()
+    return A, F, time.perf_counter() - t0
+
+
+def _exact_solve(A, b):
+    """scipy's sparse LU solve of ``A x = b`` refined twice with the
+    residual in extended precision (``np.longdouble``): x to ~1e-16
+    relative, whatever cond(A), so a comparison measures the solver
+    under test alone. Returns (refined x, the unrefined ``spsolve`` x)."""
+    import scipy.sparse.linalg as spla
+
+    A = A.tocsc()
+    lu = spla.splu(A)
+    x0 = x = lu.solve(b)
+    Al, bl = A.astype(np.longdouble), np.asarray(b, np.longdouble)
+    for _ in range(2):
+        x = x + lu.solve(np.asarray(bl - Al @ x.astype(np.longdouble),
+                                    np.float64))
+    return x, x0
+
+
+def _trsm_steps(F):
+    """The ``"trsm"`` diagonal steps of one solve alone, on operands
+    gathered beforehand: one ``solve_triangular`` per level of L and of
+    U. Returns the callable and the (bytes, FLOP) of its work."""
+    import torch
+
+    R = HEADLINE["R"]
+    ops, nbytes, flop = [], 0, 0
+    for data in (F.ldata, F.udata):
+        for w in data.waves:
+            if w.accumulate:
+                continue
+            D = data.diag[w.dst_long].contiguous()
+            r = torch.ones((D.shape[0], D.shape[1], R), dtype=D.dtype,
+                           device="cuda")
+            ops.append((D, r, not data.lower))
+            nbytes += _nbytes(D) + 2 * _nbytes(r)
+            flop += D.shape[0] * D.shape[1] ** 2 * R
+
+    def run():
+        return [torch.linalg.solve_triangular(D, r, upper=up)
+                for D, r, up in ops]
+
+    return run, (nbytes, flop)
+
+
+def phase_tri_modes(smi):
+    """``tri_mode="trsm"`` and ``"inv_refine"`` at the headline: float64
+    within 1e-12 of scipy's sparse LU solve refined in extended precision
+    (:func:`_exact_solve`; the unrefined ``spsolve`` is itself ~cond(A)·eps
+    off) for ``ldiv``, after ``refactor_numeric(1.01·A)`` and the fused
+    step on ``1.02·A`` (``"inv"`` beside them at its 1e-9 bar; the step on
+    randomly perturbed values is reported in all three),
+    ``lsolve``/``rsolve`` against ``spsolve_triangular``, float32
+    backward error, the kernel path against ``plain=True``, the
+    launches of the main path, and the timing beside ``"inv"``. Returns
+    the launches of the float32 solves of both modes (the main path of
+    this phase)."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from tpu_sparse_lu_torch.ops.tri_inverse import tri_inverse
+
+    rng = np.random.default_rng(14)
+    R = HEADLINE["R"]
+    modes = ("trsm", "inv_refine")
+    f64, f64_raw, perturbed, build_s = {}, {}, {}, {}
+    b = rng.random((HEADLINE["nx"] * HEADLINE["ny"], R))
+    bt = None
+    for mode in ("inv",) + modes:
+        A, F, build_s[mode, "float64"] = _mode_solver("float64", mode)
+        if (F._ldiv_sched is None) is (mode == "inv"):
+            raise AssertionError(f"{mode}: the solver took another path")
+        e, raw, xs = {}, {}, {}
+        A2, A4 = A.copy(), A.copy()
+        A2.data *= 1.01
+        A4.data *= 1.02
+        # seeded random values of the same pattern, the same in each mode
+        A3 = _same_pattern(np.random.default_rng(140), A)
+        xs["ldiv"] = F.ldiv(b)
+        F.refactor_numeric(A2)
+        xs["refactor_numeric"] = F.ldiv(b)
+        step = F.make_refactor_solve_step()
+        xs["step"] = step(A4.data, b)
+        # reported, not held to 1e-12: the static-pivot elimination of
+        # perturbed values, whatever the diagonal step
+        xs["perturbed"] = step(A3.data, b)
+        for k, M in (("ldiv", A), ("refactor_numeric", A2), ("step", A4),
+                     ("perturbed", A3)):
+            ref, plain = _exact_solve(M, b)
+            e[k], raw[k] = _rel_err(xs[k], ref), _rel_err(xs[k], plain)
+        perturbed[mode] = e.pop("perturbed")
+        if bt is None:
+            bt = rng.random((F.n_factor, 4))
+        for name, M, lower in (("lsolve", F.L, True), ("rsolve", F.U, False)):
+            e[name] = _rel_err(getattr(F, name)(bt), spla.spsolve_triangular(
+                M.tocsr(), bt, lower=lower))
+        bar = 1e-9 if mode == "inv" else 1e-12
+        bad = {k: v for k, v in e.items() if not v <= bar}
+        if bad:
+            raise AssertionError(f"{mode} float64 misses {bar:g}: {bad}")
+        f64[mode] = e
+        f64_raw[mode] = raw
+        del F, step
+    # float32: the main path of the two modes, its launches counted
+    f32, solvers, kernel_vs_plain = {}, {}, 0.0
+    names = ("ldiv_fused", "perm_gather", "wave_apply", "wave_apply_bf16")
+    read = _reset_launches(*names)
+    for mode in modes:
+        A, F, build_s[mode, "float32"] = _mode_solver("float32", mode)
+        before = read()
+        b = rng.random((A.shape[0], R)).astype(np.float32)
+        x = F.ldiv(b)
+        torch.cuda.synchronize()
+        d = {k: v - before[k] for k, v in read().items()}
+        diag_waves = sum(not w.accumulate
+                         for data in (F.ldata, F.udata) for w in data.waves)
+        off_waves = sum(w.accumulate
+                        for data in (F.ldata, F.udata) for w in data.waves)
+        want = {"ldiv_fused": 0, "perm_gather": 2, "wave_apply_bf16": 0,
+                "wave_apply": off_waves + (2 * diag_waves
+                                           if mode == "inv_refine" else 0)}
+        if d != want:
+            raise AssertionError(f"{mode} ldiv launched {d}, not {want}")
+        f32[mode] = _backward_error(A, x.cpu().numpy(), b)
+        if not f32[mode] < 1e-3:
+            raise AssertionError(f"{mode} float32 backward error "
+                                 f"{f32[mode]:.3e}")
+        bt = torch.as_tensor(b, device="cuda")
+        kernel_vs_plain = max(kernel_vs_plain, _rel(
+            F._direct_solve(bt), F._direct_solve(bt, plain=True)))
+        solvers[mode] = F
+    launches = read()
+    if not kernel_vs_plain <= TOL["float32"]:
+        raise AssertionError(f"the modes' kernel path differs from plain "
+                             f"by {kernel_vs_plain:.3e}")
+    # timing beside "inv", float32 and float64, eager and by graph replay
+    _, solvers["inv"], _ = _mode_solver("float32", "inv")
+    ms, share = {}, {}
+    for dt in ("float32", "float64"):
+        sv = solvers if dt == "float32" else {
+            m: _mode_solver(dt, m)[1] for m in ("inv",) + modes}
+        b = torch.as_tensor(rng.random((A.shape[0], R)),
+                            dtype=getattr(torch, dt), device="cuda")
+        for turn in (0, 1):
+            for m in (("inv",) + modes)[::1 if turn == 0 else -1]:
+                fn = lambda F=sv[m]: F._direct_solve(b)
+                ms.setdefault((m, dt), []).append(
+                    (_median_ms(lambda _: fn()), _graph_ms(fn)))
+        run, work = _trsm_steps(sv["trsm"])
+        share[dt] = (_median_ms(lambda _: run()), _graph_ms(run))
+        WORK["solve_triangular_" + dt] = work
+        ms["plain", dt] = _median_ms(
+            lambda _: sv["trsm"]._direct_solve(b, plain=True))
+        # the set-up the one bank layout costs "trsm": both factors'
+        # diagonal-tile inverses
+        diags = [d.diag for d in (sv["trsm"].ldata, sv["trsm"].udata)]
+        ms["tri_inverse", dt] = _median_ms(
+            lambda _: [tri_inverse(D, lower=lw)
+                       for D, lw in zip(diags, (True, False))], reps=20)
+        if dt == "float64":
+            del sv
+    torch.cuda.synchronize()
+    fmt = lambda m, dt: "/".join(f"{e:.4f}|{g:.4f}" for e, g in ms[m, dt])
+    print(f"phase 14 tri modes (headline, R={R}, host factorization): "
+          + "; ".join(f"{m} float64 rel err vs refined spsolve ldiv "
+                      f"{e['ldiv']:.3e}, after refactor_numeric(1.01*A) "
+                      f"{e['refactor_numeric']:.3e}, fused step on 1.02*A "
+                      f"{e['step']:.3e} (vs plain spsolve "
+                      + "/".join(f"{v:.3e}" for v in f64_raw[m].values())
+                      + f"), lsolve {e['lsolve']:.3e}, rsolve "
+                      f"{e['rsolve']:.3e} vs spsolve_triangular"
+                      for m, e in f64.items())
+          + " (bar 1e-12, inv 1e-9); the fused step on seeded perturbed "
+          "values (1 + 0.05 N(0, 1), not held to a bar: the static-pivot "
+          "elimination's own error) "
+          + ", ".join(f"{m} {v:.3e}" for m, v in perturbed.items())
+          + "; float32 backward error "
+          + ", ".join(f"{m} {v:.3e}" for m, v in f32.items())
+          + f" (bar 1e-3); kernel path vs plain {kernel_vs_plain:.3e} "
+          f"(bound {TOL['float32']:g}); each solve 2 perm_gather and the "
+          f"waves, no ldiv_fused; launches {launches}; construction s "
+          + ", ".join(f"{m}/{dt} {v:.2f}" for (m, dt), v in build_s.items()))
+    for dt in ("float32", "float64"):
+        e, g = share[dt]
+        bound_us = _bound("solve_triangular_" + dt)[0] * 1e3
+        t_e = np.mean([x for x, _ in ms["trsm", dt]])
+        t_g = np.mean([x for _, x in ms["trsm", dt]])
+        print(f"phase 14 timing on {smi}, {dt}: ldiv R={R} per solve, "
+              f"eager|graph replay ms, two turns: inv {fmt('inv', dt)}; "
+              f"trsm {fmt('trsm', dt)}; inv_refine {fmt('inv_refine', dt)}; "
+              f"trsm plain {ms['plain', dt]:.4f} eager; its solve_triangular "
+              f"calls alone {e:.4f}|{g:.4f} ms = {e / t_e:.1%}|{g / t_g:.1%} "
+              f"of the trsm solve (bound {bound_us:.1f} us); "
+              f"tri_inverse of both factors' diagonal tiles (the set-up of "
+              f"the one bank layout under trsm) {ms['tri_inverse', dt]:.4f} "
+              f"ms eager")
+    del solvers
+    return {k: launches[k] for k in ("perm_gather", "wave_apply")}
+
+
+def _file_mb(path) -> float:
+    import os
+
+    return os.path.getsize(path) / 1e6
+
+
+def _persist_case(tag, A, F, build_s, R, tmp, rng, cpu_reload=False):
+    """Full and light save of F, reloaded on the card: the full reload
+    solves bit for bit like F, the light one like ``refactor_numeric(A)``
+    on F. Returns one line of results."""
+    import torch
+
+    from tpu_sparse_lu_torch import ParallelSparseLU
+
+    b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=F.dtype,
+                        device="cuda")
+    out = {}
+    for kind, values in (("full", True), ("light", False)):
+        path = f"{tmp}/{tag}_{kind}.npz"
+        t0 = time.perf_counter()
+        F.save(path, values=values)
+        out[kind, "save_s"] = time.perf_counter() - t0
+        out[kind, "mb"] = _file_mb(path)
+        read = _reset_launches("ldiv_fused", *ASSEMBLY, "lu_tile", "tile_mm")
+        t0 = time.perf_counter()
+        G = ParallelSparseLU.from_saved(A, path, device="cuda")
+        torch.cuda.synchronize()
+        out[kind, "load_s"] = time.perf_counter() - t0
+        ran = read()
+        if kind == "full":
+            ref = F.ldiv(b)
+            if any(ran.values()):
+                raise AssertionError(f"{tag} full reload launched {ran}")
+        else:
+            if any(ran[k] == 0 for k in (*ASSEMBLY, "lu_tile", "tile_mm")):
+                raise AssertionError(f"{tag} light reload did not run the "
+                                     f"refactorization kernels: {ran}")
+            F.refactor_numeric(A)
+            ref = F.ldiv(b)
+        x = G.ldiv(b)
+        if not torch.equal(x, ref):
+            raise AssertionError(f"{tag} {kind} reload differs from the "
+                                 f"saved solver by "
+                                 f"{float((x - ref).abs().max()):.3e}")
+        e = _backward_error(A, x.cpu().numpy(), b.cpu().numpy())
+        if not e < 1e-3:
+            raise AssertionError(f"{tag} {kind} reload backward error "
+                                 f"{e:.3e}")
+        out[kind, "berr"] = e
+        if kind == "full" and cpu_reload:
+            # a reload on another device than the save's
+            H = ParallelSparseLU.from_saved(A, path, device="cpu")
+            r = _rel(H.ldiv(b.cpu()), ref.cpu())
+            if not r <= TOL["float32"]:
+                raise AssertionError(f"{tag} full reload on the CPU differs "
+                                     f"by {r:.3e}")
+            out["cpu_rel"] = r
+            del H
+        del G
+    # what a JAX light file adds: the port's refactor plan rebuilt on the
+    # saved closure solve plans
+    t0 = time.perf_counter()
+    F._build_refactor_plan(F.plan.lplan, F.plan.uplan)
+    out["jax_light_plan_s"] = time.perf_counter() - t0
+    full = {k[1]: v for k, v in out.items() if k[0] == "full"}
+    light = {k[1]: v for k, v in out.items() if k[0] == "light"}
+    return (f"{tag} (built in {build_s:.2f} s): full save {full['mb']:.1f} "
+            f"MB in {full['save_s']:.3f} s, reload {full['load_s']:.3f} s, "
+            f"ldiv bit for bit, backward error {full['berr']:.3e}; light "
+            f"save {light['mb']:.2f} MB in {light['save_s']:.3f} s (the "
+            f"refactor plan planned for the file), reload "
+            f"{light['load_s']:.3f} s (refactorization included), ldiv bit "
+            f"for bit with refactor_numeric(A), backward error "
+            f"{light['berr']:.3e}; a JAX light file's refactor plan rebuilt "
+            f"in {out['jax_light_plan_s']:.3f} s"
+            + (f"; full reload on the CPU rel diff {out['cpu_rel']:.3e}"
+               if cpu_reload else ""))
+
+
+def phase_persistence():
+    """``save``/``from_saved`` at the headline and config 2, into a
+    directory of the checkout removed afterwards."""
+    import os
+    import tempfile
+
+    rng = np.random.default_rng(15)
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=here) as tmp:
+        t0 = time.perf_counter()
+        A, F = _headline_solver("float32")
+        lines.append(_persist_case("headline", A, F,
+                                   time.perf_counter() - t0, HEADLINE["R"],
+                                   tmp, rng, cpu_reload=True))
+        del F
+        t0 = time.perf_counter()
+        A, F = _config2_solver()
+        lines.append(_persist_case("config 2", A, F, time.perf_counter() - t0,
+                                   CONFIG2["R"], tmp, rng))
+        del F
+    print("phase 15 persistence: " + "; ".join(lines))
+
+
 def _some_phases(phases, smi) -> int:
-    """Only the phases named, of 2-13 (4 runs 3 first, 9 runs 8, 13 runs
+    """Only the phases named, of 2-15 (4 runs 3 first, 9 runs 8, 13 runs
     12); prints no result line."""
-    if not phases or not phases <= set(range(2, 14)):
-        raise SystemExit(f"--phases takes a subset of 2-13, got "
+    if not phases or not phases <= set(range(2, 16)):
+        raise SystemExit(f"--phases takes a subset of 2-15, got "
                          f"{sorted(phases)}")
     if 2 in phases:
         phase_kernels_vs_plain()
@@ -1933,6 +2284,10 @@ def _some_phases(phases, smi) -> int:
         _, f32_steps, bf_steps = phase_f64_tier()
         if 13 in phases:
             phase_chain_bf16_timing(smi, f32_steps, bf_steps)
+    if 14 in phases:
+        phase_tri_modes(smi)
+    if 15 in phases:
+        phase_persistence()
     print(f"chip_smoke: phases {sorted(phases | {1})} passed (a partial run: "
           f"no result line)")
     return 0
@@ -1945,7 +2300,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=None,
-                        help="run only these of phases 2-13 after phase 1, "
+                        help="run only these of phases 2-15 after phase 1, "
                              "comma-separated (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1974,6 +2329,10 @@ def main() -> int:
     bf_launches, f32_steps, bf_steps = phase_f64_tier()
     launches.update(bf_launches)
     ms.update(phase_chain_bf16_timing(smi, f32_steps, bf_steps))
+    # perm_gather and wave_apply are on the main path of tri_mode="trsm"
+    # and "inv_refine": their launches are those solves'
+    launches.update(phase_tri_modes(smi))
+    phase_persistence()
     # these kernels are timed by CUDA-graph replay (device time); the others
     # by eager CUDA events (host included)
     graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",

@@ -3,9 +3,11 @@
 Same matrices and right-hand sides through both packages, on the CPU:
 ``lsolve``/``rsolve``, ``ldiv`` with and without refinement (nd embedding
 included), host ``refactor`` with new values and with a new pattern, the
-``L @ U == (Rs·A)[p, q]`` contract and the error paths. Float64 results
-are held to 1e-9, the JAX package's own ``tri_mode="inv"`` bar
-(tests/test_solve.py:111); float32 results to the JAX f32 tolerances.
+``L @ U == (Rs·A)[p, q]`` contract and the error paths, in the three
+``tri_mode`` values. Float64 results are held to 1e-9 at ``"inv"``, the
+JAX package's own bar for it (tests/test_solve.py:111), and to the
+reference's 1e-12 at ``"trsm"`` and ``"inv_refine"``
+(test/runtests.jl:25); float32 results to the JAX f32 tolerances.
 """
 
 import numpy as np
@@ -25,6 +27,9 @@ from tpu_sparse_lu.models import (
 )
 
 INV_TOL = 1e-9
+TOL = 1e-12  # the reference's sparse bar (test/runtests.jl:25)
+MODE_TOL = {"inv": INV_TOL, "trsm": TOL, "inv_refine": TOL}
+MODES = sorted(MODE_TOL)
 
 CASES = {
     "fe": (lambda rng: fe_block_matrix(rng, 10, 5), dict(chunk_size=8)),
@@ -202,15 +207,23 @@ def test_device_is_required():
         tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8)
 
 
-@pytest.mark.parametrize("call, item", [
-    (lambda F: F.save("unused.npz"), "item 11"),
-    (lambda F: tlu.ParallelSparseLU.from_saved(None, "unused.npz"),
-     "item 11"),
-])
-def test_not_ported_entry_points_name_roadmap_item(call, item):
-    F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        call(F)
+@pytest.mark.parametrize("values, version", [(True, 2), (False, 3)])
+def test_save_reload_solves_like_the_saved_solver(rng, tmp_path, values,
+                                                  version):
+    """A full save reloads to the same bits; a light one (no factor
+    values) to those of ``refactor_numeric`` on the saved solver."""
+    A = poisson_2d(6, 6)
+    F = tlu.ParallelSparseLU(A, chunk_size=8, device="cpu")
+    path = tmp_path / "state.npz"
+    F.save(path, values=values)
+    with np.load(path) as z:
+        assert int(z["version"]) == version
+        assert ("L_data" in z) is values
+    G = tlu.ParallelSparseLU.from_saved(A, path, device="cpu")
+    if not values:
+        F.refactor_numeric(A)
+    b = rng.random((A.shape[0], 2))
+    assert torch.equal(G.ldiv(b), F.ldiv(b))
 
 
 def test_make_f64_ldiv_is_ported(rng):
@@ -243,12 +256,133 @@ def test_from_jax_arrays_checks_matrix(rng, tmp_path):
     with pytest.raises(ValueError, match="pattern differs"):
         tlu.ParallelSparseLU.from_jax_arrays(
             A + sp.diags(np.ones(59), 5), arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlu.ParallelSparseLU.from_jax_arrays(A, {**arrays, "light": 1},
-                                             device="cpu")
+    # a JAX light save (no factor values) loads too
+    light = tmp_path / "light.npz"
+    jf.save(str(light), values=False)
+    with np.load(light) as z:
+        assert "light" in z and "L_data" not in z
+        tl = tlu.ParallelSparseLU.from_jax_arrays(A, dict(z), device="cpu")
+    assert tl.has_device_refactor
+    assert_isapprox(tl.ldiv(b).numpy(), np.asarray(jf.ldiv(b)),
+                    rtol=INV_TOL, atol=INV_TOL)
 
 
 def test_close_releases_device_state():
     F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
     tlu.cleanup_ParallelSparseLU(F)
     assert F.ldata is None and F.udata is None
+
+
+# ---------------------------------------------------------------------------
+# tri_mode: "trsm" and "inv_refine" beside "inv"
+# ---------------------------------------------------------------------------
+
+MODE_CASES = {
+    # tests/test_solve.py:102-112
+    "fe": (lambda rng: fe_block_matrix(rng, 12, 5), dict(chunk_size=8)),
+    "poisson_nd": (lambda rng: poisson_2d(12, 12),
+                   dict(chunk_size=16, ordering="nd")),
+}
+
+
+def _mode_pair(A, mode, **cfg):
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(tri_mode=mode,
+                                                         **cfg))
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(tri_mode=mode,
+                                                         **cfg),
+                              device="cpu")
+    return jf, tf
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", sorted(MODE_CASES))
+def test_modes_match_jax_and_spsolve(rng, case, mode):
+    """The ``test_modes_and_schedules`` family: each mode against the JAX
+    package in the same mode and against ``spsolve``."""
+    make, cfg = MODE_CASES[case]
+    A = make(rng)
+    jf, tf = _mode_pair(A, mode, **cfg)
+    assert tf.config.tri_mode == mode
+    assert (tf._ldiv_sched is None) is (mode != "inv")
+    tol = MODE_TOL[mode]
+    for rhs in (rng.random(A.shape[0]), rng.random((A.shape[0], 3))):
+        got = tf.ldiv(rhs)
+        assert got.dtype == torch.float64 and got.shape == rhs.shape
+        assert_isapprox(got.numpy(), np.asarray(jf.ldiv(rhs)), rtol=tol,
+                        atol=tol)
+        assert_isapprox(got.numpy(), spla.spsolve(A.tocsc(), rhs), rtol=tol,
+                        atol=tol)
+    B = torch.as_tensor(rng.random((A.shape[0], 2)))
+    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
+
+
+@pytest.mark.parametrize("mode", ["trsm", "inv_refine"])
+@pytest.mark.parametrize("case", sorted(MODE_CASES))
+def test_lsolve_rsolve_modes(rng, case, mode):
+    """``lsolve``/``rsolve`` take the mode's diagonal step: 1e-12 against
+    ``spsolve_triangular`` and the JAX package in the same mode."""
+    make, cfg = MODE_CASES[case]
+    jf, tf = _mode_pair(make(rng), mode, **cfg)
+    B = rng.random((tf.n_factor, 3))
+    for name, M, lower in (("lsolve", tf.L, True), ("rsolve", tf.U, False)):
+        got = getattr(tf, name)(B).numpy()
+        assert_isapprox(got, np.asarray(getattr(jf, name)(B)), rtol=TOL,
+                        atol=TOL, msg=name)
+        assert_isapprox(got, spla.spsolve_triangular(M.tocsr(), B,
+                                                     lower=lower),
+                        rtol=TOL, atol=TOL, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["trsm", "inv_refine"])
+def test_f32_modes_match_jax(rng, mode):
+    """float32 in the new modes: the JAX f32 bars of the ``inv`` test
+    above (``test_f32_ldiv_matches_jax``)."""
+    make, cfg = MODE_CASES["poisson_nd"]
+    A = make(rng)
+    jf, tf = _mode_pair(A, mode, dtype="float32", **cfg)
+    B = rng.random((A.shape[0], 4)).astype(np.float32)
+    got = tf.ldiv(B)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jf.ldiv(B)),
+                               rtol=1e-5, atol=1e-6)
+    X = tf.ldiv(B, refine_steps=1).numpy().astype(np.float64)
+    An = spla.norm(A)
+    for j in range(B.shape[1]):
+        r = np.linalg.norm(A @ X[:, j] - B[:, j]) / (
+            An * np.linalg.norm(X[:, j]) + np.linalg.norm(B[:, j]))
+        assert r < 5e-6, f"backward error {r}"
+
+
+def test_bf16_stream_is_ignored_outside_inv(rng):
+    """Only the one-launch ``"inv"`` solve reads a bfloat16 stream; a
+    ``"trsm"`` solver with ``stream_dtype="bfloat16"`` solves on its
+    float32 bank, as the JAX package does."""
+    A = poisson_2d(12, 12)
+    cfg = dict(chunk_size=16, ordering="nd", dtype="float32",
+               tri_mode="trsm")
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        stream_dtype="bfloat16", **cfg), device="cpu")
+    F32 = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg),
+                               device="cpu")
+    assert F.ldata.tiles_bf16 is None and F.udata.tiles_bf16 is None
+    b = rng.random((A.shape[0], 2)).astype(np.float32)
+    assert torch.equal(F.ldiv(b), F32.ldiv(b))
+
+
+def test_modes_keep_the_diagonal_tiles(rng):
+    """After a host pack every mode keeps ``D`` beside the inverses, its
+    padding rows and dummy slot the identity (``trsm`` divides by
+    them)."""
+    A = poisson_2d(7, 5)  # n = 35: the last chunk of 8 is padded
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=8, tri_mode="trsm"), device="cpu")
+    for data in (F.ldata, F.udata):
+        D = data.diag
+        assert D.shape == (data.K + 1, 8, 8)
+        assert torch.equal(D[-1], torch.eye(8, dtype=D.dtype))
+        pad = F.n_factor - (data.K - 1) * 8
+        assert torch.equal(D[data.K - 1, pad:, pad:],
+                           torch.eye(8 - pad, dtype=D.dtype))
+        ident = torch.bmm(D, data.diag_inv)
+        torch.testing.assert_close(ident, torch.eye(8, dtype=D.dtype)
+                                   .expand_as(ident), rtol=0, atol=1e-12)

@@ -15,7 +15,8 @@ Same matrices, seeded with numpy, through both packages on the CPU:
   ``factorize="device"/"auto"``, the memory guard, a JAX device
   factorization carried across — against JAX at 1e-9 in float64 (the JAX
   package's ``tri_mode="inv"`` bar, tests/test_solve.py:111) and against
-  ``spsolve`` at the same bar, or the JAX float32 bars.
+  ``spsolve`` at the same bar, or the JAX float32 bars; at ``"trsm"`` and
+  ``"inv_refine"`` at the reference's 1e-12 (test/runtests.jl:25).
 """
 
 import dataclasses
@@ -57,6 +58,7 @@ from tpu_sparse_lu_torch.ops.span_gather import span_gather, span_gather_plain
 from tpu_sparse_lu_torch.refactor import blocked_fill
 
 INV_TOL = 1e-9
+TOL = 1e-12  # the reference's sparse bar (test/runtests.jl:25)
 
 PLAN_CASES = {
     "block_banded": (lambda rng: block_banded(rng, 24, 12),
@@ -788,6 +790,65 @@ def test_fused_step_in_step_refinement_float32(rng):
         tf.make_refactor_solve_step(refine_steps=1)(A2.data, b).numpy()
         - x_exact)
     assert e1 <= e0 and e1 < 1e-4 * np.linalg.norm(x_exact)
+
+
+@pytest.mark.parametrize("tri_mode", ["trsm", "inv_refine"])
+def test_refactor_numeric_tri_modes(rng, tri_mode):
+    """tests/test_refactor.py:115-122: static pivots in float64 still reach
+    1e-12 in these modes, against ``spsolve`` and the JAX package."""
+    A = poisson_2d(8, 8)
+    cfg = dict(chunk_size=8, tri_mode=tri_mode)
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(**cfg))
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg),
+                              device="cpu")
+    A2 = _perturb(rng, A, 0.05)
+    jf.refactor_numeric(A2)
+    tf.refactor_numeric(A2)
+    b = rng.random(A.shape[0])
+    x = tf.ldiv(b).numpy()
+    assert_isapprox(x, spla.spsolve(A2, b), rtol=TOL, atol=TOL)
+    assert_isapprox(x, np.asarray(jf.ldiv(b)), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("tri_mode", ["trsm", "inv_refine"])
+def test_fused_step_tri_modes(rng, tri_mode):
+    """The fused step feeds the mode's solve: 1e-12 against ``spsolve``
+    and JAX's step, and the same bits as ``refactor_numeric`` + ``ldiv``."""
+    A = poisson_2d(8, 8)
+    cfg = dict(chunk_size=8, tri_mode=tri_mode)
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(**cfg))
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg),
+                              device="cpu")
+    A2 = _perturb(rng, A, 0.05)
+    b = rng.random((A.shape[0], 3))
+    x = tf.make_refactor_solve_step()(A2.data, b)
+    assert_isapprox(x.numpy(), np.asarray(
+        jf.make_refactor_solve_step()(A2.data, b)), rtol=TOL, atol=TOL)
+    for j in range(3):
+        assert_isapprox(x[:, j].numpy(), spla.spsolve(A2, b[:, j]), rtol=TOL,
+                        atol=TOL)
+    tf.refactor_numeric(A2)
+    assert torch.equal(tf.ldiv(b), x)
+
+
+@pytest.mark.parametrize("tri_mode", ["trsm", "inv_refine"])
+def test_factorize_device_tri_modes(rng, tri_mode):
+    """A first factorization on the device feeds the mode's solve: 1e-12
+    against ``spsolve`` after construction and after ``refactor_numeric``;
+    the kernel and plain routes agree."""
+    A = poisson_2d(14, 11)
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=16, ordering="nd", factorize="device", tri_mode=tri_mode),
+        device="cpu")
+    b = rng.random((A.shape[0], 2))
+    assert_isapprox(tf.ldiv(b).numpy(), spla.spsolve(A.tocsc(), b), rtol=TOL,
+                    atol=TOL)
+    A2 = _perturb(rng, A, 0.05)
+    tf.refactor_numeric(A2)
+    assert_isapprox(tf.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
+                    rtol=TOL, atol=TOL)
+    B = torch.as_tensor(b)
+    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
 
 
 def test_plain_route_equals_kernel_route_on_cpu(rng):

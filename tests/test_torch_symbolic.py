@@ -86,13 +86,72 @@ def test_default_chunk_size(n, device_type, cs):
     assert default_chunk_size(n, device_type) == cs
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("tri_mode", "trsm", "item 8"),
-    ("tri_mode", "inv_refine", "item 8"),
-])
-def test_config_modes_not_ported_name_roadmap_item(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        SolverConfig(**{field: value})
+@pytest.mark.parametrize("mode", ["trsm", "inv_refine"])
+def test_config_modes_construct(rng, mode):
+    """Both modes construct, and a solver keeps the mode (``"auto"`` alone
+    resolves)."""
+    assert SolverConfig(tri_mode=mode).tri_mode == mode
+    F = tlu.ParallelSparseLU(poisson_2d(6, 6), config=SolverConfig(
+        chunk_size=8, tri_mode=mode), device="cpu")
+    assert F.config.tri_mode == mode
+    assert tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8,
+                                device="cpu").config.tri_mode == "inv"
+
+
+@pytest.mark.parametrize("family", sorted(MATRICES))
+def test_symbolic_plan_save_load_roundtrip(rng, tmp_path, family):
+    """``SymbolicPlan.save``/``load`` keep every array and its dtype, and
+    the file is the JAX package's: each package reads the other's."""
+    from tpu_sparse_lu.symbolic import SymbolicPlan as JaxPlan
+    from tpu_sparse_lu_torch.symbolic import SymbolicPlan
+
+    A = MATRICES[family](rng)
+    tf = tlu.ParallelSparseLU(A, config=SolverConfig(chunk_size=8),
+                              device="cpu")
+    jf = jlu.ParallelSparseLU(A, config=jlu.SolverConfig(chunk_size=8,
+                                                         tri_mode="inv"))
+    mine, theirs = tmp_path / "port.npz", tmp_path / "jax.npz"
+    tf.save_symbolic(mine)
+    jf.save_symbolic(str(theirs))
+    want = _plan_arrays(tf.plan)
+    for got in (SymbolicPlan.load(mine), SymbolicPlan.load(theirs),
+                JaxPlan.load(str(mine))):
+        got = _plan_arrays(got)
+        assert got.keys() == want.keys()
+        for k in want:
+            a, b = np.asarray(got[k]), np.asarray(want[k])
+            assert np.array_equal(a, b) and a.dtype == b.dtype, k
+
+
+def test_saved_integers_load_by_value(tmp_path):
+    """A 0-d entry loads as the Python scalar of its value, whatever the
+    field's annotation; the JAX package's ``load_dc`` converts only fields
+    annotated ``int`` (tpu_sparse_lu/api.py:1462-1468), so it would leave
+    ``count`` and ``flag`` here 0-d arrays."""
+    from typing import Optional
+
+    from tpu_sparse_lu_torch.symbolic import (
+        dataclass_arrays,
+        dataclass_from_arrays,
+    )
+
+    @dataclasses.dataclass
+    class Rec:
+        count: Optional[int]
+        flag: "np.bool_"
+        scale: float
+        rows: np.ndarray
+
+    rec = Rec(count=7, flag=True, scale=0.5,
+              rows=np.arange(4, dtype=np.int32))
+    path = tmp_path / "rec.npz"
+    np.savez(path, **dataclass_arrays(rec, "r_"))
+    with np.load(path) as z:
+        got = dataclass_from_arrays(Rec, z, "r_")
+    assert type(got.count) is int and got.count == 7
+    assert type(got.flag) is bool and got.flag
+    assert type(got.scale) is float and got.scale == 0.5
+    assert got.rows.dtype == np.int32 and np.array_equal(got.rows, rec.rows)
 
 
 def test_config_accepts_bf16_stream():

@@ -1,7 +1,7 @@
 """Public solver API: the :class:`ParallelSparseLU` lifecycle in PyTorch.
 
-Counterpart of ``tpu_sparse_lu/api.py`` (host factorization, ``tri_mode=
-"inv"``), mirroring the reference's user contract
+Counterpart of ``tpu_sparse_lu/api.py``, mirroring the reference's user
+contract
 (reference test/runtests.jl:108-188): factor once → solve many →
 refactor in place when values change but sparsity doesn't → solve again.
 
@@ -15,15 +15,22 @@ refactor in place when values change but sparsity doesn't → solve again.
   * ``F.make_f64_ldiv()``                      — float64-accurate solves
                                                  from a float32
                                                  factorization
+  * ``F.save(path)`` / ``ParallelSparseLU.from_saved(A, path)``
+                                               — persistence: a reload
+                                                 skips SuperLU and the
+                                                 host planning
 
 Construction (SuperLU, or with ``factorize="device"`` no numeric host
 factorization at all; the nd embedding; planning) runs on the host; the
 packed tiles, their inverses and the solves live on ``device``. A solve on
-a CUDA device is one launch of the hand-written kernel of
-``ops/fused_ldiv.py`` (``fused_ldiv``) — or, for bidiagonal factors (1-D
-chains), the one of ``ops/bidiag_ldiv.py`` — and a device
-refactorization runs those of ``ops/assembly.py``,
-``ops/lu_tile.py`` and ``ops/elimination.py``.
+a CUDA device at ``tri_mode="inv"`` is one launch of the hand-written
+kernel of ``ops/fused_ldiv.py`` (``fused_ldiv``); at ``"trsm"`` and
+``"inv_refine"`` it is ``perm_gather``, the level steps of
+``solve.blocked_tri_solve`` (the off-diagonal waves on ``wave_apply``) and
+``perm_gather``; for bidiagonal factors (1-D chains) in any mode it is
+the one launch of ``ops/bidiag_ldiv.py``. A device refactorization runs
+the kernels of ``ops/assembly.py``, ``ops/lu_tile.py`` and
+``ops/elimination.py``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from .ops.fused_ldiv import (
     build_ldiv_schedule,
     fused_ldiv,
     fused_ldiv_bf16,
+    perm_gather,
     perm_gather_plain,
 )
 from .ops.scan_solve import bidiag_bands, chain_planes
@@ -67,12 +75,13 @@ from .utils.config import SolverConfig, default_chunk_size, resolve_tri_mode
 
 __all__ = ["ParallelSparseLU", "cleanup_ParallelSparseLU"]
 
-_PERSISTENCE = "ROADMAP.md queue A item 11 (persistence)"
+# save-file versions: 1 is the JAX package's (full, or light with a
+# ``light`` entry), read but never written; the port writes 2 (full: the
+# factor values) and 3 (light: the device-refactor plan, no values)
+JAX_SAVE, FULL_SAVE, LIGHT_SAVE = 1, 2, 3
 
-# SolverConfig fields a JAX save carries over; the solve mode and tile
-# stream are the port's own
-_CARRIED_CONFIG = ("chunk_size", "dtype", "ordering", "pivot_threshold",
-                   "nd_cutoff")
+# prefix of the six top-level SymbolicPlan entries of a solver save
+_PLAN_TOP = "plan_"
 
 
 def _resolve_device(device) -> torch.device:
@@ -90,10 +99,6 @@ def _resolve_dtype(config_dtype: Optional[str], A_dtype) -> torch.dtype:
     if config_dtype is not None:
         return getattr(torch, config_dtype)
     return torch.float64 if A_dtype == np.float64 else torch.float32
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
 def _pattern_factors(A: sp.csc_matrix) -> HostFactors:
@@ -217,7 +222,6 @@ class ParallelSparseLU:
         else:
             self._factors = self._factorize(A_factor)
         self.plan = build_symbolic_plan(self._factors, cs)
-        self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
         self._a_factor_pattern = (A_factor.indptr.copy(),
                                   A_factor.indices.copy())
         self._set_matrix(A)
@@ -231,36 +235,79 @@ class ParallelSparseLU:
 
     @classmethod
     def from_jax_arrays(cls, A: sp.spmatrix, arrays: Mapping, *, device):
-        """Build a solver from the arrays a JAX
-        ``tpu_sparse_lu.ParallelSparseLU.save(path, values=True)`` writes
-        (``np.load(path)``), so both packages solve with the very same
-        factorization: factors, permutations, scaling, plan and nd
-        embedding are taken as saved, and nothing is re-planned.
-
-        ``A`` must be the matrix that was factored (pattern and values).
+        """Build a solver from the arrays of a save (``np.load(path)``) —
+        a JAX ``tpu_sparse_lu.ParallelSparseLU.save``, full or light, or
+        the port's own — so both packages solve with the very same
+        factorization. ``A`` must be the matrix the file holds, values
+        included (``ValueError`` otherwise): :meth:`from_saved` with
+        ``on_value_change="error"``.
         """
-        z = arrays
-        if int(z["version"]) != 1:
-            raise ValueError(f"unknown save version {int(z['version'])}")
-        if "light" in z and int(z["light"]) == 1:
-            _not_ported("loading a values-less save", _PERSISTENCE)
+        return cls._from_arrays(A, arrays, device=device,
+                                on_value_change="error")
+
+    @classmethod
+    def from_saved(cls, A: sp.spmatrix, path, *, device,
+                   on_value_change: str = "refactor"):
+        """Rebuild a solver from a :meth:`save` file (or a JAX package
+        save, version 1, full or light), skipping SuperLU and all host
+        planning (reference analogue: the live UMFPACK object reused
+        across ``lu!``, src:53-54).
+
+        ``A`` must have exactly the sparsity pattern the state was saved
+        from (``ValueError`` otherwise: a pattern change needs a new
+        solver, the reference's reallocate path, src:265-273). A full
+        save is packed as saved; a light save (no factor values) runs the
+        device refactorization (``factorize="device"``'s path) on ``A``'s
+        values, from the saved refactor plan — or, for a JAX light file,
+        whose plan describes the JAX package's windowed assembly, from a
+        refactor plan the port rebuilds on the saved closure solve plans.
+        If ``A``'s values differ from the saved ones, ``on_value_change``
+        says what to do: ``"refactor"`` (default) refactorizes on the
+        device (``refactor_numeric``, unchecked), ``"error"`` raises.
+        ``device`` is where the solver lives, whatever the saver's was.
+        """
+        with np.load(path) as z:
+            return cls._from_arrays(A, z, device=device,
+                                    on_value_change=on_value_change)
+
+    @classmethod
+    def _from_arrays(cls, A: sp.spmatrix, z: Mapping, *, device,
+                     on_value_change: str):
+        """The one reader of saved state (:meth:`from_saved`)."""
+        if on_value_change not in ("refactor", "error"):
+            raise ValueError(f"unknown on_value_change: {on_value_change!r}")
+        version = int(z["version"])
+        if version not in (JAX_SAVE, FULL_SAVE, LIGHT_SAVE):
+            raise ValueError(f"unknown save version {version}")
+        light = version == LIGHT_SAVE or (
+            version == JAX_SAVE and "light" in z and int(z["light"]) == 1)
         A = sp.csc_matrix(A)
         A.sort_indices()
         if (not np.array_equal(A.indptr, z["a_indptr"])
                 or not np.array_equal(A.indices, z["a_indices"])):
-            raise ValueError("matrix sparsity pattern differs from the saved "
-                             "state")
-        if not np.array_equal(np.asarray(A.data, np.float64),
-                              np.asarray(z["a_data"], np.float64)):
-            raise ValueError("matrix values differ from the saved state; "
-                             "load with the saved matrix, then refactor(A)")
+            raise ValueError(
+                "matrix sparsity pattern differs from the saved state; "
+                "from_saved needs the exact saved pattern: construct a new "
+                "ParallelSparseLU for a pattern change")
+        values_changed = not np.array_equal(
+            np.asarray(A.data, np.float64),
+            np.asarray(z["a_data"], np.float64))
+        if values_changed and on_value_change == "error":
+            raise ValueError(
+                "matrix values differ from the saved state (same pattern); "
+                "load with the saved matrix, or pass on_value_change="
+                "'refactor' to refactorize on the device")
         saved = json.loads(bytes(z["config_json"]).decode())
+        names = {f.name for f in dataclasses.fields(SolverConfig)}
         self = cls.__new__(cls)
         self._init_refactor_state()
         self.device = _resolve_device(device)
+        # a JAX save carries the JAX-only knobs too; the resolved mode is
+        # taken as saved
         self.config = SolverConfig(
-            tri_mode="inv", **{k: saved[k] for k in _CARRIED_CONFIG}
-        )
+            **{k: v for k, v in saved.items() if k in names})
+        self.config = dataclasses.replace(
+            self.config, tri_mode=resolve_tri_mode(self.config.tri_mode))
         self._n_orig = int(z["n_orig"])
         self.dtype = _resolve_dtype(self.config.dtype, A.dtype)
         nd = int(z["nd_cutoff"])
@@ -272,31 +319,22 @@ class ParallelSparseLU:
         nf = int(z["f_n"])
 
         def csc(prefix):
-            return sp.csc_matrix(
-                (z[f"{prefix}_data"], z[f"{prefix}_indices"],
-                 z[f"{prefix}_indptr"]), shape=(nf, nf))
+            indptr, indices = z[f"{prefix}_indptr"], z[f"{prefix}_indices"]
+            if light:
+                # no values: identity placeholders (diagonal 1, the rest
+                # 0), finite through the pack, replaced by the device
+                # refactorization below — as under factorize="device"
+                cols = np.repeat(np.arange(nf, dtype=np.int64),
+                                 np.diff(indptr))
+                data = (indices == cols).astype(np.float64)
+            else:
+                data = z[f"{prefix}_data"]
+            return sp.csc_matrix((data, indices, indptr), shape=(nf, nf))
 
         self._factors = HostFactors(m=int(z["f_m"]), n=nf, L=csc("L"),
                                     U=csc("U"), p=z["p"], q=z["q"],
                                     Rs=z["Rs"])
-
-        def tri(prefix):
-            kw = {}
-            for fld in dataclasses.fields(TriPlan):
-                v = z[f"{prefix}_{fld.name}"]
-                if fld.name in ("n", "cs", "K", "T"):
-                    v = int(v)
-                elif fld.name == "lower":
-                    v = bool(v)
-                kw[fld.name] = v
-            return TriPlan(**kw)
-
-        self.plan = SymbolicPlan(
-            n=int(z["plan_n"]), cs=int(z["plan_cs"]), lplan=tri("l"),
-            uplan=tri("u"), p=z["plan_p"], q=z["plan_q"], Rs=z["plan_Rs"],
-            qinv=z["plan_qinv"],
-        )
-        self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
+        self.plan = SymbolicPlan.from_arrays(z, top=_PLAN_TOP)
         if self._ext is None:
             self._a_factor_pattern = (A.indptr.copy(), A.indices.copy())
         else:
@@ -304,6 +342,18 @@ class ParallelSparseLU:
                                       z["af_indices"].copy())
         self._set_matrix(A)
         self._prepare_device()
+        if light:
+            from .refactor import RefactorPlan, upload_refactor_plan
+
+            if version == LIGHT_SAVE:
+                rp = RefactorPlan.from_arrays(z)
+            else:
+                rp = self._build_refactor_plan(self.plan.lplan,
+                                               self.plan.uplan)
+            self._refactor_dev = upload_refactor_plan(rp, self.device)
+            self._refactor_plan = rp
+        if light or values_changed:
+            self.refactor_numeric(A)
         return self
 
     def _init_refactor_state(self) -> None:
@@ -364,10 +414,14 @@ class ParallelSparseLU:
         return np.where(ds >= 0, A.data[np.maximum(ds, 0)], 1.0)
 
     def _set_matrix(self, A: sp.csc_matrix) -> None:
-        """Keep A on the device as a sparse CSR tensor, for the residual of
+        """Keep A's pattern on the host (``save``, the same-pattern checks)
+        and A on the device as a sparse CSR tensor, for the residual of
         iterative refinement (``matvec``), with the CSC → CSR permutation
         of its values, so new values on the device need no host trip, and
-        a float64 copy of its CSC values (``make_f64_ldiv``'s residual)."""
+        a float64 copy of its CSC values (``make_f64_ldiv``'s residual,
+        ``save``'s ``a_data``)."""
+        self._a_pattern = (A.indptr.copy(), A.indices.copy())
+        self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
         nnz = A.indices.shape[0]
         # CSC positions carried through the conversion (shifted by one so
         # that no position is an explicit zero)
@@ -520,15 +574,20 @@ class ParallelSparseLU:
     # -- device state -------------------------------------------------------
     def _prepare_device(self) -> None:
         """Pack the factor nonzeros into tiles, invert the diagonal tiles
-        and build the wave schedules, the permutation vectors and the task
-        list of the one-launch solve (the reference's allocate_chunks +
-        fill_chunks!, src:151-243), then detect a bidiagonal chain
-        (:meth:`_prepare_scan_path`)."""
+        and build the wave schedules, the permutation vectors and, at
+        ``tri_mode="inv"``, the task list of the one-launch solve (the
+        reference's allocate_chunks + fill_chunks!, src:151-243), then
+        detect a bidiagonal chain (:meth:`_prepare_scan_path`). The bank
+        has one layout in every mode: the inverses are made in
+        ``"trsm"`` too (``lsolve``/``rsolve`` and the other modes share
+        the waves)."""
         plan, dev = self.plan, self.device
+        mode = self.config.tri_mode
         # numeric-state generation: a make_f64_ldiv callable records it and
         # refuses to run once it moved
         self._generation = getattr(self, "_generation", 0) + 1
-        bf16 = self.config.stream_dtype == "bfloat16"
+        # only the one-launch solve reads a bfloat16 stream
+        bf16 = self.config.stream_dtype == "bfloat16" and mode == "inv"
 
         def tri(tplan, M):
             nz = torch.as_tensor(np.asarray(M.data), dtype=self.dtype,
@@ -556,8 +615,10 @@ class ParallelSparseLU:
                                      device=dev)
         # the whole solve as one task list (ops/fused_ldiv.py); a device
         # refactorization changes only the banks and keeps it
-        self._ldiv_sched = build_ldiv_schedule(
-            plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
+        self._ldiv_sched = None
+        if mode == "inv":
+            self._ldiv_sched = build_ldiv_schedule(
+                plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
         # Rs in input row order: the perm-in scales before it permutes
         self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
                                    device=dev)
@@ -627,8 +688,10 @@ class ParallelSparseLU:
     def _direct_solve(self, b: torch.Tensor, *,
                       plain: bool = False) -> torch.Tensor:
         """``x = A⁻¹ b`` for a contiguous (n, R) tensor on the device:
-        perm-in with ``Rs``, the L waves, the U waves, perm-out, in one
-        launch of ``fused_ldiv``.
+        perm-in with ``Rs``, the L levels, the U levels, perm-out — at
+        ``tri_mode="inv"`` in one launch of ``fused_ldiv``, in the other
+        modes as ``perm_gather``, the level steps of ``blocked_tri_solve``
+        and ``perm_gather``.
 
         ``plain=True`` runs the plain PyTorch version of the perms and of
         every wave instead; it exists to hold the kernel path against it
@@ -642,13 +705,15 @@ class ParallelSparseLU:
                     plain: bool = False) -> torch.Tensor:
         """:meth:`_direct_solve` with the given banks and row scaling.
         Reads the tile stream: the bfloat16 banks where there are some."""
-        if plain:
+        mode = self.config.tri_mode
+        if plain or mode != "inv":
+            gather = perm_gather_plain if plain else perm_gather
             R = b.shape[1]
-            xw = perm_gather_plain(b, self._pidx, rs).view(
+            xw = gather(b, self._pidx, rs).view(
                 self.plan.lplan.K + 1, self.plan.cs, R)
-            blocked_tri_solve(ldata, xw, plain=True, stream=True)
-            blocked_tri_solve(udata, xw, plain=True, stream=True)
-            return perm_gather_plain(xw.view(-1, R), self._qidx)
+            blocked_tri_solve(ldata, xw, mode=mode, plain=plain, stream=True)
+            blocked_tri_solve(udata, xw, mode=mode, plain=plain, stream=True)
+            return gather(xw.view(-1, R), self._qidx)
         if ldata.tiles_bf16 is not None:
             return fused_ldiv_bf16(b, self._ldiv_sched, ldata.tiles_bf16,
                                    udata.tiles_bf16, rs)
@@ -697,7 +762,8 @@ class ParallelSparseLU:
     def _tri_solve(self, data: TriKernelData, tplan: TriPlan, b):
         nf = self.n_factor
         b, squeeze = self._as_rhs(b, nf)
-        xw = blocked_tri_solve(data, block_rhs(b, nf, tplan.K, tplan.cs))
+        xw = blocked_tri_solve(data, block_rhs(b, nf, tplan.K, tplan.cs),
+                               mode=self.config.tri_mode)
         y = unblock_rhs(xw, nf)
         return y[:, 0] if squeeze else y
 
@@ -770,7 +836,6 @@ class ParallelSparseLU:
         self._factors = new_factors
         self._a_factor_pattern = (A_factor.indptr.copy(),
                                   A_factor.indices.copy())
-        self._a_pattern_sig = (A.indptr.tobytes(), A.indices.tobytes())
         # the pivots (and maybe the pattern) moved: the static-pivot
         # refactorization schedule is stale, and the host values are fresh
         self._init_refactor_state()
@@ -807,22 +872,45 @@ class ParallelSparseLU:
         """
         if self._refactor_plan is not None:
             return
+        from .refactor import upload_refactor_plan
+
+        lplan, uplan, rp = self._plan_device_refactor(store_budget)
+        self.plan.lplan = lplan
+        self.plan.uplan = uplan
+        self._refactor_dev = upload_refactor_plan(rp, self.device)
+        self._refactor_plan = rp
+        self._prepare_device()
+
+    def _factor_pattern(self) -> sp.csc_matrix:
+        """The pattern of the factored matrix (the nd extension under
+        ordering="nd"), values 1: what the refactor plan is built on."""
+        indptr, indices = self._a_factor_pattern
+        nf = indptr.shape[0] - 1
+        return sp.csc_matrix((np.ones(indices.shape[0]), indices, indptr),
+                             shape=(nf, nf))
+
+    def _build_refactor_plan(self, lplan: TriPlan, uplan: TriPlan):
+        """The refactor plan of this factorization for the closure solve
+        plans ``lplan``/``uplan``."""
+        from .refactor import build_refactor_plan
+
+        return build_refactor_plan(
+            self._factor_pattern(), self._factors.p, self._factors.q,
+            self.plan.cs, lplan, uplan,
+            data_src=None if self._ext is None else self._ext["data_src"],
+        )
+
+    def _plan_device_refactor(self, store_budget: Optional[int] = None):
+        """``(lplan, uplan, rp)``: the closure solve plans and the refactor
+        plan of this factorization, under the memory guard of
+        :meth:`enable_device_refactor`. Changes nothing on the solver."""
         if store_budget is None:
             store_budget = self.config.refactor_store_budget
         limit = store_budget if store_budget else _free_bytes(self.device)
-        from .refactor import (
-            build_refactor_plan,
-            closure_solve_plans,
-            upload_refactor_plan,
-        )
+        from .refactor import closure_solve_plans
 
-        # the refactor plan lives on the factored pattern (the extension
-        # under ordering="nd")
-        indptr, indices = self._a_factor_pattern
-        nf = indptr.shape[0] - 1
-        A_pat = sp.csc_matrix(
-            (np.ones(indices.shape[0]), indices, indptr), shape=(nf, nf)
-        )
+        A_pat = self._factor_pattern()
+        nf = A_pat.shape[0]
         lplan, uplan = closure_solve_plans(
             A_pat, self._factors.L, self._factors.U,
             self._factors.p, self._factors.q, self.plan.cs,
@@ -847,10 +935,7 @@ class ParallelSparseLU:
         if store_bytes > limit:
             refuse(store_bytes, "dense tile store of the elimination "
                    "closure + solve extraction")
-        rp = build_refactor_plan(
-            A_pat, self._factors.p, self._factors.q, cs, lplan, uplan,
-            data_src=None if self._ext is None else self._ext["data_src"],
-        )
+        rp = self._build_refactor_plan(lplan, uplan)
         # precise guard now that the levels exist: the per-level inverse
         # stacks (2 * NL * BL tiles) and the unpermuted assembly store
         BL = rp.diag_ids.shape[1]
@@ -858,11 +943,7 @@ class ParallelSparseLU:
         if store_bytes + extra > limit:
             refuse(store_bytes + extra, "tile store + per-level inverse "
                    "stacks + assembly store")
-        self.plan.lplan = lplan
-        self.plan.uplan = uplan
-        self._refactor_dev = upload_refactor_plan(rp, self.device)
-        self._refactor_plan = rp
-        self._prepare_device()
+        return lplan, uplan, rp
 
     def refactor_numeric(self, A: sp.spmatrix, *, check: bool = False,
                          growth_limit: float = 1e7,
@@ -999,13 +1080,82 @@ class ParallelSparseLU:
 
         return solve
 
-    # -- not ported yet -----------------------------------------------------
-    def save(self, path, **kwargs):
-        _not_ported("save", _PERSISTENCE)
+    # -- persistence --------------------------------------------------------
+    def save_symbolic(self, path) -> None:
+        """Write just the symbolic plan (``SymbolicPlan.save``, the JAX
+        package's format); :meth:`save` writes the whole reusable state."""
+        # after a device factorization the plan's Rs is read back first
+        self._materialize_factors()
+        self.plan.save(path)
 
-    @classmethod
-    def from_saved(cls, A, path, **kwargs):
-        _not_ported("from_saved", _PERSISTENCE)
+    def save(self, path, *, compress: bool = False,
+             values: object = "auto") -> None:
+        """Write everything host-computed — the factor patterns (and
+        values), ``p``, ``q``, ``Rs``, the symbolic plan, the nd embedding,
+        the config (``tri_mode`` included) and A's pattern and CURRENT
+        values — so :meth:`from_saved` rebuilds this solver without
+        SuperLU or the planner. Uncompressed by default; ``compress=True``
+        trades CPU time for disk.
+
+        ``values`` — whether to write the factor values, the dominant
+        bytes (nnz(L+U) ≫ nnz(A)):
+
+        * ``"auto"`` (default): not when the solver has a device
+          refactorization schedule (:attr:`has_device_refactor`), which is
+          written instead (a light save, version 3): the reload computes
+          the values from A's on the device, as this solver did.
+        * ``False``: a light save in any case. Without a schedule, one is
+          planned for the file alone (its memory guard may refuse); the
+          solver itself is not changed.
+        * ``True``: a full save (version 2), the values at the working
+          precision; after a device factorization they are read back from
+          the device first.
+        """
+        if values not in ("auto", True, False):
+            raise ValueError(f"values must be 'auto', True or False, got "
+                             f"{values!r}")
+        light = values is False or (values == "auto"
+                                    and self._refactor_plan is not None)
+        plan = self.plan
+        if not light:
+            self._materialize_factors()
+        elif self._refactor_plan is None:
+            lplan, uplan, rp = self._plan_device_refactor()
+            plan = dataclasses.replace(plan, lplan=lplan, uplan=uplan)
+        else:
+            rp = self._refactor_plan
+        f = self._factors
+        flat = {
+            "version": np.int64(LIGHT_SAVE if light else FULL_SAVE),
+            "n_orig": np.int64(self._n_orig),
+            "config_json": np.frombuffer(
+                json.dumps(dataclasses.asdict(self.config)).encode(),
+                dtype=np.uint8),
+            "nd_cutoff": np.int64(self._nd_cutoff
+                                  if isinstance(self._nd_cutoff, int)
+                                  else -1),
+            "a_indptr": self._a_pattern[0],
+            "a_indices": self._a_pattern[1],
+            "a_data": self._a64.cpu().numpy(),
+            "f_n": np.int64(f.n), "f_m": np.int64(f.m),
+            "L_indptr": f.L.indptr, "L_indices": f.L.indices,
+            "U_indptr": f.U.indptr, "U_indices": f.U.indices,
+            "p": f.p, "q": f.q, "Rs": self.Rs,
+        }
+        if light:
+            flat.update(rp.arrays())
+        else:
+            vdt = np.float32 if self.dtype == torch.float32 else np.float64
+            flat["L_data"] = np.asarray(f.L.data, dtype=vdt)
+            flat["U_data"] = np.asarray(f.U.data, dtype=vdt)
+        if self._ext is not None:
+            flat.update(
+                ext_src=self._ext["src"], ext_pos=self._ext["pos"],
+                ext_data_src=self._ext["data_src"],
+                af_indptr=self._a_factor_pattern[0],
+                af_indices=self._a_factor_pattern[1])
+        flat.update(plan.arrays(top=_PLAN_TOP))
+        (np.savez_compressed if compress else np.savez)(path, **flat)
 
     def close(self) -> None:
         """Release the device buffers, the refactorization's included (the

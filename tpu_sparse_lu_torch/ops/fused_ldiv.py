@@ -75,7 +75,7 @@ class Wave:
     block ``ent_src``; ``ent_row`` is each entry's ``d``. All int32.
     ``blocks``/``tiles`` (set here) are the carrier blocks and bank tiles
     the wave needs, so a launch can check its operands without reading
-    the device.
+    the device; ``dst_long`` is ``dst`` as an int64 index.
     """
 
     dst: torch.Tensor
@@ -107,6 +107,9 @@ class Wave:
                  "negative block or tile index in a wave")
         self.blocks = int(blocks.max()) + 1 if blocks.numel() else 0
         self.tiles = int(tiles.max()) + 1 if n_ent else 0
+        # ``dst`` as an index: the level's chunks where the wave is a
+        # diagonal one, which the trsm / inv_refine steps gather
+        self.dst_long = self.dst.long()
 
 
 def make_wave(dst, groups, accumulate: bool, device) -> Wave:

@@ -27,7 +27,7 @@ broke the frozen pivots and falls back to the host ``refactor``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -40,7 +40,12 @@ from .assemble import (
     plan_assembly,
 )
 from .ops.elimination import ElimSchedule, build_elim_schedule, eliminate
-from .symbolic import TriPlan, plan_triangular
+from .symbolic import (
+    TriPlan,
+    dataclass_arrays,
+    dataclass_from_arrays,
+    plan_triangular,
+)
 
 __all__ = [
     "blocked_fill",
@@ -126,6 +131,35 @@ class RefactorPlan:
     # destination in schedule order. One group per destination lets one
     # block own each destination tile: no atomics, a fixed summation order.
     schur_groups: List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]
+
+    def arrays(self) -> dict:
+        """The plan as ``np.savez`` entries: ``rp_*`` its own fields,
+        ``asm_*`` the assembly's, and ``sg_*`` the Schur groups, each of
+        the four per-level CSR arrays concatenated over the levels with
+        its offsets (``sg_<name>_off``, NL+1)."""
+        flat = dataclass_arrays(self, "rp_", skip=("asm", "schur_groups"))
+        flat.update(dataclass_arrays(self.asm, "asm_"))
+        for j, name in enumerate(_SCHUR_GROUP_FIELDS):
+            parts = [g[j] for g in self.schur_groups]
+            flat[f"sg_{name}"] = np.concatenate(parts)
+            flat[f"sg_{name}_off"] = np.cumsum([0] + [len(a) for a in parts])
+        return flat
+
+    @classmethod
+    def from_arrays(cls, z: Mapping) -> "RefactorPlan":
+        """The inverse of :meth:`arrays` on any mapping of arrays (an
+        ``np.load`` of a light save)."""
+        cols = []
+        for name in _SCHUR_GROUP_FIELDS:
+            flat, off = z[f"sg_{name}"], z[f"sg_{name}_off"]
+            cols.append([flat[off[l]:off[l + 1]]
+                         for l in range(len(off) - 1)])
+        return dataclass_from_arrays(
+            cls, z, "rp_", asm=dataclass_from_arrays(AssemblyPlan, z, "asm_"),
+            schur_groups=list(zip(*cols)))
+
+
+_SCHUR_GROUP_FIELDS = ("dst", "ptr", "l_tile", "u_tile")
 
 
 def _tile_pattern_of_permuted(

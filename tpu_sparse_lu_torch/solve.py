@@ -1,17 +1,20 @@
 """Level-scheduled blocked triangular solves: counterpart of
-``tpu_sparse_lu/solve.py`` at ``tri_mode="inv"``.
+``tpu_sparse_lu/solve.py``.
 
 The reference's ``lsolve!``/``rsolve!`` run a serial chunk loop of BLAS
 ``trsv!`` + ``gemm!`` (reference src/SharedMemSparseLU.jl:349-367,
 :374-392). Here the chunk DAG is layered into levels on the host
-(``plan_triangular``) and each level runs as two waves
+(``plan_triangular``) and each level runs as two steps
 (:func:`~tpu_sparse_lu_torch.ops.fused_ldiv.build_waves`):
 
-* the diagonal wave ``x_k ← Dinv_k · x_k`` over the level's chunks (the
-  reference's ``trsv!`` with pre-inverted tiles), then
+* the diagonal step over the level's chunks (the reference's ``trsv!``),
+  by ``tri_mode``: ``"inv"`` — the diagonal wave ``x_k ← Dinv_k · x_k``
+  with pre-inverted tiles; ``"trsm"`` — a batched triangular solve with
+  the tiles ``D_k`` themselves; ``"inv_refine"`` — the diagonal wave, then
+  one correction ``y += Dinv_k · (r − D_k · y)``;
 * the off-diagonal wave ``x_dst += Σ off_t · x_src(t)`` over the tiles
   whose source chunk lies in the level (the reference's ``gemm!``, tiles
-  pre-negated).
+  pre-negated), in every mode.
 
 The right-hand side is carried chunk-blocked as ``xw : (K+1, cs, R)``;
 block ``K`` is the padding slot the JAX engine needs for its padded level
@@ -53,11 +56,12 @@ class TriKernelData:
 
     ``tiles_t`` is the factor's tile bank, every tile transposed (the
     layout the kernel reads coalesced): the ``K+1`` diagonal-tile inverses,
-    then the ``T+1`` negated off-diagonal tiles, dummy slots included.
-    ``diag`` keeps the ``K+1`` diagonal tiles themselves where the bank was
-    made on the device (a device refactorization), for
-    ``ParallelSparseLU``'s host factors; ``None`` after a host pack, whose
-    host factors are current. ``tiles_bf16`` is a bfloat16 copy of
+    then the ``T+1`` negated off-diagonal tiles, dummy slots included; one
+    layout in every ``tri_mode``. ``diag`` keeps the ``K+1`` diagonal tiles
+    themselves (padding rows and the dummy slot = I): the ``"trsm"`` and
+    ``"inv_refine"`` diagonal steps read them, and after a device
+    refactorization ``ParallelSparseLU``'s host factors are made from
+    them. ``lower`` — which triangle. ``tiles_bf16`` is a bfloat16 copy of
     ``tiles_t`` under ``SolverConfig.stream_dtype="bfloat16"``: the tile
     stream ``ldiv``'s waves read; the bank itself stays at the solver's
     dtype (``F.L``/``F.U`` and ``lsolve``/``rsolve`` read it).
@@ -65,9 +69,10 @@ class TriKernelData:
 
     K: int
     T: int
+    lower: bool
     tiles_t: torch.Tensor  # (K+1+T+1, cs, cs)
     waves: List[Wave]
-    diag: Optional[torch.Tensor] = None  # (K+1, cs, cs)
+    diag: torch.Tensor  # (K+1, cs, cs)
     tiles_bf16: Optional[torch.Tensor] = None  # (K+1+T+1, cs, cs)
 
     @property
@@ -93,8 +98,8 @@ def prepare_tri_kernel(plan: TriPlan, diag: torch.Tensor,
     diag_inv = tri_inverse(diag, lower=plan.lower)
     tiles_t = torch.cat([diag_inv, offdiag]).transpose(1, 2).contiguous()
     return TriKernelData(
-        K=plan.K, T=plan.T, tiles_t=tiles_t,
-        waves=build_waves(plan, diag.device),
+        K=plan.K, T=plan.T, lower=plan.lower, tiles_t=tiles_t,
+        waves=build_waves(plan, diag.device), diag=diag,
         tiles_bf16=tiles_t.to(torch.bfloat16) if bf16_stream else None)
 
 
@@ -112,14 +117,17 @@ def tri_kernel_from_bank(prev: TriKernelData, tiles_t: torch.Tensor,
 
 
 def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
-                      plain: bool = False,
+                      mode: str = "inv", plain: bool = False,
                       stream: bool = False) -> torch.Tensor:
-    """Solve ``T x = b`` in place on the chunk-blocked ``xw (K+1, cs, R)``.
+    """Solve ``T x = b`` in place on the chunk-blocked ``xw (K+1, cs, R)``,
+    each level's diagonal step by ``mode`` (``SolverConfig.tri_mode``,
+    resolved: ``"inv"``, ``"trsm"`` or ``"inv_refine"``).
 
     ``stream=True`` reads the tile stream of ``ldiv``: the bfloat16 copy
-    where there is one (through :func:`wave_apply_bf16`), else the bank.
-    ``plain=True`` runs the plain PyTorch waves on any device; it exists to
-    hold the kernel path against them on the card.
+    where there is one (through :func:`wave_apply_bf16`; solvers make one
+    at ``"inv"`` only), else the bank. ``plain=True`` runs the plain
+    PyTorch waves on any device; it exists to hold the kernel path
+    against them on the card.
     """
     tiles, apply = data.tiles_t, wave_apply
     if stream and data.tiles_bf16 is not None:
@@ -127,7 +135,23 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
     if plain:
         apply = wave_apply_plain
     for w in data.waves:
-        apply(xw, tiles, w)
+        if w.accumulate or mode == "inv":
+            apply(xw, tiles, w)
+        elif mode == "trsm":
+            # the diagonal wave's destinations are the level's chunks
+            ids = w.dst_long
+            xw[ids] = torch.linalg.solve_triangular(
+                data.diag[ids], xw[ids], upper=not data.lower)
+        elif mode == "inv_refine":
+            ids = w.dst_long
+            r = xw[ids]
+            apply(xw, tiles, w)                       # y = Dinv·r
+            y = xw[ids]
+            xw[ids] = r - torch.bmm(data.diag[ids], y)
+            apply(xw, tiles, w)                       # Dinv·(r − D·y)
+            xw.index_add_(0, ids, y)                  # y + Dinv·(r − D·y)
+        else:
+            raise ValueError(f"unknown tri_mode: {mode!r}")
     return xw
 
 

@@ -25,14 +25,15 @@ cheap (src:245-279).
 
 This is a copy of ``tpu_sparse_lu/symbolic.py`` (importing that module
 would import JAX through its package ``__init__``) restricted to the NumPy
-planner: the native ``_symcore`` core is not carried over, and plan
-persistence is not ported yet. The plans it produces are identical.
+planner: the native ``_symcore`` core is not carried over. The plans it
+produces are identical, and :meth:`SymbolicPlan.save` writes the JAX
+package's file.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -45,6 +46,8 @@ __all__ = [
     "factorize_host",
     "plan_triangular",
     "build_symbolic_plan",
+    "dataclass_arrays",
+    "dataclass_from_arrays",
 ]
 
 
@@ -385,6 +388,56 @@ class SymbolicPlan:
     q: np.ndarray
     Rs: np.ndarray
     qinv: np.ndarray  # x = wrk[qinv], qinv = argsort(q)
+
+    def arrays(self, top: str = "") -> dict:
+        """The plan as ``np.savez`` entries: ``n, cs, p, q, Rs, qinv``
+        (each behind the prefix ``top``) and ``l_*``/``u_*``, one per
+        field of each factor's :class:`TriPlan`."""
+        flat = dataclass_arrays(self, top, skip=("lplan", "uplan"))
+        flat.update(dataclass_arrays(self.lplan, "l_"))
+        flat.update(dataclass_arrays(self.uplan, "u_"))
+        return flat
+
+    @classmethod
+    def from_arrays(cls, z: Mapping, top: str = "") -> "SymbolicPlan":
+        """The inverse of :meth:`arrays` on any mapping of arrays (an
+        ``np.load`` of a file)."""
+        return dataclass_from_arrays(
+            cls, z, top, lplan=dataclass_from_arrays(TriPlan, z, "l_"),
+            uplan=dataclass_from_arrays(TriPlan, z, "u_"))
+
+    def save(self, path) -> None:
+        """Write the plan to ``path`` (compressed ``.npz``), in the JAX
+        package's format (``tpu_sparse_lu/symbolic.py:434-445``)."""
+        np.savez_compressed(path, **self.arrays())
+
+    @classmethod
+    def load(cls, path) -> "SymbolicPlan":
+        """Read a plan :meth:`save` (or the JAX package's) wrote."""
+        with np.load(path) as z:
+            return cls.from_arrays(z)
+
+
+def dataclass_arrays(obj, prefix: str, skip=()) -> dict:
+    """The fields of a dataclass of NumPy arrays and scalars as
+    ``np.savez`` entries named ``prefix + field``; the arrays keep their
+    dtypes (int32 and int64 alike)."""
+    return {prefix + f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.name not in skip}
+
+
+def dataclass_from_arrays(cls, z: Mapping, prefix: str, **given):
+    """The inverse of :func:`dataclass_arrays`: ``cls`` from the entries
+    ``prefix + field`` of ``z``, except the fields ``given``. A 0-d entry
+    comes back as the Python scalar of its value (an int, a bool, a
+    float), whatever the field's annotation says; every other entry as
+    the array that was saved."""
+    kw = dict(given)
+    for f in dataclasses.fields(cls):
+        if f.name not in kw:
+            v = np.asarray(z[prefix + f.name])
+            kw[f.name] = v.item() if v.ndim == 0 else v
+    return cls(**kw)
 
 
 def build_symbolic_plan(factors: HostFactors, cs: int) -> SymbolicPlan:

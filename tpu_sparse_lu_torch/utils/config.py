@@ -3,17 +3,12 @@
 Same frozen dataclass and the same defaults, minus the TPU knobs
 (``use_pallas``, ``schedule``, ``matmul_precision``): the port always
 computes float32 in full float32 (never TF32) and runs one level executor.
-Modes the port does not serve yet raise ``NotImplementedError`` naming the
-``ROADMAP.md`` queue A item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-# tri_mode values the port does not serve yet
-_NOT_YET = ("trsm", "inv_refine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,8 +18,15 @@ class SolverConfig:
     Attributes:
       chunk_size: dense tile edge of the block decomposition of L and U.
         ``None`` → :func:`default_chunk_size` for the solver's device.
-      tri_mode: ``"auto"`` (default, resolves to ``"inv"``) or ``"inv"``:
-        diagonal tiles are pre-inverted, so a solve is tile products only.
+      tri_mode: how each level's diagonal tiles are solved. ``"inv"``
+        (``"auto"``, the default, resolves to it): the tiles are
+        pre-inverted, so a solve is tile products only, one launch on a
+        card; its float64 results are held to 1e-9, the JAX package's bar
+        for plain inverses. ``"trsm"``: a batched triangular solve per
+        level (exact substitution), the off-diagonal waves as in
+        ``"inv"``. ``"inv_refine"``: the inverse, then one correction
+        ``y += Dinv·(r − D·y)`` per level. Both meet the reference's
+        float64 bar of 1e-12.
       dtype: ``"float32"`` or ``"float64"``; ``None`` inherits the input
         matrix's dtype (float64 matrices solve in float64).
       ordering: ``"colamd"`` (SuperLU default), ``"natural"``, ``"mmd"`` or
@@ -40,6 +42,8 @@ class SolverConfig:
         widened to float32 as the waves read it; needs ``dtype="float32"``;
         pair it with ``make_f64_ldiv`` or ``refine_steps``). The bank that
         ``F.L``/``F.U``, ``lsolve`` and ``rsolve`` read stays at ``dtype``.
+        Only ``tri_mode="inv"`` reads the half-width stream; the other
+        modes ignore it and solve on the bank, as the JAX package does.
       factorize: first-factorization backend. ``"host"`` (default):
         SuperLU. ``"device"``: no numeric host factorization; the first
         factorization is the blocked device elimination of
@@ -62,12 +66,7 @@ class SolverConfig:
     refactor_store_budget: Optional[int] = None
 
     def __post_init__(self):
-        if self.tri_mode in _NOT_YET:
-            raise NotImplementedError(
-                f"tri_mode={self.tri_mode!r} is not ported yet: ROADMAP.md "
-                "queue A item 8 (trsm / inv_refine modes)"
-            )
-        if self.tri_mode not in ("auto", "inv"):
+        if self.tri_mode not in ("auto", "trsm", "inv", "inv_refine"):
             raise ValueError(f"unknown tri_mode: {self.tri_mode!r}")
         if self.dtype not in (None, "float32", "float64"):
             raise ValueError(f"unknown dtype: {self.dtype!r}")
@@ -84,7 +83,7 @@ class SolverConfig:
 
 def resolve_tri_mode(tri_mode: str) -> str:
     """Resolve ``tri_mode="auto"``: ``"inv"`` on every device, the mode the
-    ldiv kernel serves (the JAX package picks it on TPU only)."""
+    one-launch ldiv kernel serves (the JAX package picks it on TPU only)."""
     return "inv" if tri_mode == "auto" else tri_mode
 
 
