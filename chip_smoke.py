@@ -118,7 +118,10 @@ Phases, one line of output each; any failure raises and exits non-zero:
     beside ``"inv"``, float32 and float64, eager and by CUDA-graph replay
     in two turns, the ``solve_triangular`` calls of one ``trsm`` solve
     alone (its share), and ``tri_inverse`` of both factors' diagonal tiles
-    (the set-up the one bank layout costs ``trsm``);
+    (the set-up the one bank layout costs ``trsm``); on the seeded
+    perturbed values, one refinement step (the fused step with
+    ``refine_steps=1``, and ``ldiv(refine_steps=1)`` after
+    ``refactor_numeric``) held to 1e-12 in all three modes;
 15. persistence on the headline (float32) and config 2: ``save`` full and
     light (``values=False``) into a directory of the checkout removed
     afterwards, ``from_saved`` on the card — the full reload's ``ldiv`` bit
@@ -128,16 +131,32 @@ Phases, one line of output each; any failure raises and exits non-zero:
     backward error < 1e-3 — and the headline's full file reloaded on the
     CPU (within ``TOL``); file sizes, save, reload and construction
     seconds, and the time a JAX light file's refactor plan takes to
-    rebuild.
+    rebuild;
+16. the native planner core (``utils/_symcore.cpp``, built with ``g++``):
+    it must build; at the headline and at BASELINE config 5's one-device
+    half (``block_banded(default_rng(0), 1600, 64)``, n = 102,400, colamd,
+    chunk_size=128, float32) its host plan and refactor plan equal the
+    NumPy planner's array by array, and the construction seconds split
+    into SuperLU, host plan and refactor plan (native / NumPy forced);
+17. the mesh engines over an NCCL process group of world size 1 (the one
+    card): at the headline (R = 16) the psum engine, the data-parallel
+    engine and the halo pipeline, at config 5 the pipeline and the psum
+    engine, each within ``TOL`` of ``F.ldiv`` and timed eagerly (CUDA
+    events, medians) beside it, with its collectives per solve and the
+    psum engine's bytes per solve; the engines' run counted from zero
+    must launch ``perm_gather`` and ``ldiv_fused``; then two ranks on the
+    one card over gloo with CUDA tensors, each running the three engines,
+    reported as they went (not gated).
 
 Then one JSON line on the kernels (each with its time, its bound from
 this run's bytes and FLOP against the card's published peaks, and its
 library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
-``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-15, with
+``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-17, with
 no result line (for iterating on one kernel: 2,3,5 for the ldiv kernels,
 6,9 for the refactorization kernels and the assembly, 10,11,13 for the
-chain kernel, 14,15 for the tri modes and persistence).
+chain kernel, 14,15 for the tri modes and persistence, 16,17 for the
+planner core and the mesh engines).
 """
 
 import json
@@ -2014,7 +2033,7 @@ def phase_tri_modes(smi):
     rng = np.random.default_rng(14)
     R = HEADLINE["R"]
     modes = ("trsm", "inv_refine")
-    f64, f64_raw, perturbed, build_s = {}, {}, {}, {}
+    f64, f64_raw, perturbed, refined, build_s = {}, {}, {}, {}, {}
     b = rng.random((HEADLINE["nx"] * HEADLINE["ny"], R))
     bt = None
     for mode in ("inv",) + modes:
@@ -2035,11 +2054,25 @@ def phase_tri_modes(smi):
         # reported, not held to 1e-12: the static-pivot elimination of
         # perturbed values, whatever the diagonal step
         xs["perturbed"] = step(A3.data, b)
+        # one refinement step meets 1e-12 on those values, in the fused
+        # step and after refactor_numeric, in every mode (held below)
+        xs["perturbed step+1"] = F.make_refactor_solve_step(
+            refine_steps=1)(A3.data, b)
+        F.refactor_numeric(A3)
+        xs["perturbed ldiv+1"] = F.ldiv(b, refine_steps=1)
         for k, M in (("ldiv", A), ("refactor_numeric", A2), ("step", A4),
-                     ("perturbed", A3)):
+                     ("perturbed", A3), ("perturbed step+1", A3),
+                     ("perturbed ldiv+1", A3)):
             ref, plain = _exact_solve(M, b)
             e[k], raw[k] = _rel_err(xs[k], ref), _rel_err(xs[k], plain)
         perturbed[mode] = e.pop("perturbed")
+        refined[mode] = {k: e.pop(k) for k in ("perturbed step+1",
+                                               "perturbed ldiv+1")}
+        if not max(refined[mode].values()) <= 1e-12:
+            raise AssertionError(f"{mode}: one refinement step on perturbed "
+                                 f"values misses 1e-12: {refined[mode]}")
+        for k in ("perturbed step+1", "perturbed ldiv+1"):
+            raw.pop(k)
         if bt is None:
             bt = rng.random((F.n_factor, 4))
         for name, M, lower in (("lsolve", F.L, True), ("rsolve", F.U, False)):
@@ -2125,6 +2158,10 @@ def phase_tri_modes(smi):
           "values (1 + 0.05 N(0, 1), not held to a bar: the static-pivot "
           "elimination's own error) "
           + ", ".join(f"{m} {v:.3e}" for m, v in perturbed.items())
+          + "; with one refinement step (bar 1e-12), fused step / ldiv "
+          "after refactor_numeric "
+          + ", ".join(f"{m} " + "/".join(f"{v:.3e}" for v in r.values())
+                      for m, r in refined.items())
           + "; float32 backward error "
           + ", ".join(f"{m} {v:.3e}" for m, v in f32.items())
           + f" (bar 1e-3); kernel path vs plain {kernel_vs_plain:.3e} "
@@ -2252,11 +2289,338 @@ def phase_persistence():
     print("phase 15 persistence: " + "; ".join(lines))
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the native planner core, the mesh engines
+# ---------------------------------------------------------------------------
+
+CONFIG5 = dict(nblocks=1600, bs=64, chunk_size=128, R=16)
+
+
+def _config5_matrix():
+    from tpu_sparse_lu_torch.models import block_banded
+
+    return block_banded(np.random.default_rng(0), CONFIG5["nblocks"],
+                        CONFIG5["bs"])
+
+
+def _config5_solver():
+    """BASELINE config 5's one-device half (``bench.py:459-475``):
+    ``block_banded(default_rng(0), 1600, 64)`` (n = 102,400), colamd,
+    chunk_size=128, float32; returns (A, F, construction seconds)."""
+    import torch
+
+    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
+
+    A = _config5_matrix()
+    t0 = time.perf_counter()
+    F = ParallelSparseLU(A, config=SolverConfig(
+        chunk_size=CONFIG5["chunk_size"], dtype="float32"), device="cuda")
+    torch.cuda.synchronize()
+    return A, F, time.perf_counter() - t0
+
+
+def _same_arrays(a: dict, b: dict, what: str) -> None:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: fields differ")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {k} differs between the native "
+                                 f"core and the NumPy planner")
+
+
+def _planner_split(A, F):
+    """Construction seconds by layer for a built solver ``F``: SuperLU on
+    the factored matrix, the host plan (``build_symbolic_plan``) and the
+    refactor plan (closure plans + ``build_refactor_plan``), each with
+    the native core and with the NumPy planner forced; the native and
+    NumPy plans must be equal array by array."""
+    from tpu_sparse_lu_torch.ordering import staged_extension
+    from tpu_sparse_lu_torch.symbolic import build_symbolic_plan
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    cs = F.plan.cs
+    A_factor = A if F._ext is None else staged_extension(
+        A, cs, cutoff=F._nd_cutoff)[0]
+    t0 = time.perf_counter()
+    factors = F._factorize(A_factor)
+    s = {"superlu": time.perf_counter() - t0}
+    plans, rplans = {}, {}
+    native = _symcore_build.native
+    try:
+        for how in ("native", "numpy"):
+            if how == "numpy":
+                _symcore_build.native = lambda: None
+            t0 = time.perf_counter()
+            plans[how] = build_symbolic_plan(factors, cs).arrays()
+            s["host plan " + how] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lp, up, rp = F._plan_device_refactor()
+            s["refactor plan " + how] = time.perf_counter() - t0
+            rplans[how] = {**rp.arrays(), **{
+                f"{t}_{k}": v for t, p in (("l", lp), ("u", up))
+                for k, v in p.__dict__.items()}}
+    finally:
+        _symcore_build.native = native
+    _same_arrays(plans["native"], plans["numpy"], "host plan")
+    _same_arrays(rplans["native"], rplans["numpy"], "refactor plan")
+    return s
+
+
+def phase_planner():
+    """The native planner core (A12) at the headline and at config 5's
+    one-device half: it built, its plans equal the NumPy planner's, and
+    the construction seconds split into SuperLU, host plan and refactor
+    plan (native / NumPy forced)."""
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    t0 = time.perf_counter()
+    if _symcore_build.native() is None:
+        raise AssertionError("the native planner core did not build")
+    build_s = time.perf_counter() - t0
+    lines = []
+    for tag, make in (("headline", lambda: _mode_solver("float32", "inv")),
+                      ("config 5", _config5_solver)):
+        A, F, total = make()
+        s = _planner_split(A, F)
+        lines.append(
+            f"{tag} (n={A.shape[0]}, K={F.plan.lplan.K}) construction "
+            f"{total:.3f} s: SuperLU {s['superlu']:.3f} s, host plan native "
+            f"{s['host plan native']:.3f} s / NumPy "
+            f"{s['host plan numpy']:.3f} s, refactor plan native "
+            f"{s['refactor plan native']:.3f} s / NumPy "
+            f"{s['refactor plan numpy']:.3f} s")
+        del F
+    print(f"phase 16 planner: native core built in {build_s:.2f} s; plans "
+          f"equal to the NumPy planner's array by array; " + "; ".join(lines))
+
+
+_GLOO_TWO_RANKS = r"""
+import datetime, faulthandler, sys
+faulthandler.enable()
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, url, name = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+def say(*a):
+    print(f"GLOO2 {name} rank {rank}:", *a, flush=True)
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=url, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
+from tpu_sparse_lu_torch.models import block_banded, poisson_2d
+from tpu_sparse_lu_torch.parallel.dp import make_dp_ldiv
+from tpu_sparse_lu_torch.parallel.mesh import make_mesh
+from tpu_sparse_lu_torch.parallel.pipeline_solve import make_pipeline_ldiv
+from tpu_sparse_lu_torch.parallel.sharded_solve import make_sharded_ldiv
+say("group up")
+t = torch.ones(4, device="cuda")
+try:
+    dist.all_reduce(t)
+    say(f"all_reduce of a CUDA tensor gave {t.tolist()}")
+except Exception as e:
+    say(f"all_reduce of a CUDA tensor refused: {type(e).__name__}: "
+        f"{str(e)[:200]}")
+mesh = make_mesh(device_type="cuda")
+A, make = {"sharded": (poisson_2d(100, 100), make_sharded_ldiv),
+           "dp": (poisson_2d(100, 100), make_dp_ldiv),
+           "pipeline": (block_banded(np.random.default_rng(0), 120, 30),
+                        make_pipeline_ldiv)}[name]
+F = ParallelSparseLU(A, config=SolverConfig(chunk_size=128,
+                                            dtype="float32"), device="cuda")
+b = torch.as_tensor(np.random.default_rng(1).random((A.shape[0], 16)),
+                    dtype=torch.float32, device="cuda")
+solve = make(F, mesh)
+if solve is None:
+    say("no plan at D=2")
+else:
+    say("solving")
+    try:
+        x = solve(b)
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        ref = F.ldiv(b)
+        err = float((x - ref).abs().max() / ref.abs().max())
+        say(f"ran, max rel diff to F.ldiv {err:.1e}, collectives "
+            f"{solve.collectives.counts}")
+    except Exception as e:
+        say(f"refused: {type(e).__name__}: {str(e)[:300]}")
+dist.destroy_process_group()
+"""
+
+
+def _gloo_two_ranks(tmp) -> str:
+    """Two ranks on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one GPU), one pair of processes per engine: what each
+    rank reported, or how it ended. Printed, not gated."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    report = []
+    for name in ("sharded", "dp", "pipeline"):
+        url = "file://" + os.path.join(tmp, "gloo2_" + name)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _GLOO_TWO_RANKS, str(r), url, name],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=here) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=150)[0])
+        except subprocess.TimeoutExpired:
+            outs.append("deadline of 150 s passed")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        said = [ln[6:] for o in outs for ln in o.splitlines()
+                if ln.startswith("GLOO2 ")]
+        codes = [p.returncode for p in procs]
+        if codes != [0, 0]:
+            # a crash: the first lines of its fault report
+            said.append(f"exit codes {codes}: " + " / ".join(
+                ln.strip() for o in outs for ln in o.splitlines()
+                if not ln.startswith("GLOO2 ") and ln.strip())[:600])
+        report.append(name + ": " + " | ".join(said))
+    return "; ".join(report)
+
+
+def _engine_case(tag, F, b, engines, reps, smi):
+    """Each engine held to ``F.ldiv`` within ``TOL``, its eager median
+    time beside ``F.ldiv``'s, its collectives per solve."""
+    import torch
+
+    ref = F.ldiv(b)
+    parts = []
+    ms_ldiv = _median_ms(lambda _: F.ldiv(b), reps=reps, warmup=1)
+    for name, solve in engines.items():
+        if solve is None:
+            parts.append(f"{name}: no plan")
+            continue
+        x = solve(b)
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        err = _rel(x, ref)
+        if not err <= TOL["float32"]:
+            raise AssertionError(f"phase 17 {tag} {name} differs from "
+                                 f"F.ldiv by {err:.3e}")
+        counts = dict(solve.collectives.counts)
+        ms = _median_ms(lambda _: solve(b), reps=reps, warmup=1)
+        extra = ""
+        if hasattr(solve, "lsplan"):
+            R, cs = b.shape[1], F.plan.cs
+            nbytes = sum(p.psum_bytes_per_solve(cs, R, b.element_size())
+                         for p in (solve.lsplan, solve.usplan))
+            extra = f", psum_bytes_per_solve {nbytes}"
+        parts.append(f"{name} {ms:.4f} ms (max rel diff {err:.1e}; "
+                     f"all_reduce {counts['all_reduce']}, send_recv "
+                     f"{counts['send_recv']} per solve{extra})")
+    torch.cuda.synchronize()
+    return (f"{tag}: F.ldiv {ms_ldiv:.4f} ms; " + "; ".join(parts)
+            + f" [{smi}]")
+
+
+def _engine_profile(solve, b, n=3):
+    """``n`` solves under ``torch.profiler``: wall ms per solve, the
+    device kernels' ms per solve (their busy share of the wall) and the
+    ops of most host self time (ms and calls per solve)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    solve(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            solve(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    ka = prof.key_averages()
+    dev = sum(getattr(e, "self_device_time_total", 0) or 0
+              for e in ka) / n / 1e3
+    top = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    return (f"{wall:.3f} ms a solve under the profiler, device kernels "
+            f"{dev:.3f} ms ({dev / wall:.1%} busy); host self time "
+            + ", ".join(f"{e.key} {e.self_cpu_time_total / n / 1e3:.3f} ms "
+                        f"({e.count / n:.0f} calls)" for e in top))
+
+
+def phase_mesh_engines(smi):
+    """The three mesh engines (A13) over an NCCL group of world size 1 on
+    the card: at the headline (nd, R = 16, float32) the psum engine, DP
+    and the pipeline, at config 5's one-device half the pipeline and the
+    psum engine, each held to ``F.ldiv`` within ``TOL`` and timed eagerly
+    beside it; then two ranks on the card over gloo (reported). Returns
+    the launches of the engines' run (perm_gather, ldiv_fused)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_sparse_lu_torch.parallel.dp import make_dp_ldiv
+    from tpu_sparse_lu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+    )
+    from tpu_sparse_lu_torch.parallel.pipeline_solve import make_pipeline_ldiv
+    from tpu_sparse_lu_torch.parallel.sharded_solve import make_sharded_ldiv
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=here) as tmp:
+        dev = initialize_multihost("file://" + os.path.join(tmp, "nccl"), 1,
+                                   0, device="cuda")
+        try:
+            if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                raise AssertionError("not an NCCL group of world size 1")
+            mesh = make_mesh()
+            A, F = _headline_solver("float32")
+            b = torch.as_tensor(rng.random((A.shape[0], HEADLINE["R"])),
+                                dtype=torch.float32, device=dev)
+            engines = {"psum engine": make_sharded_ldiv(F, mesh),
+                       "dp": make_dp_ldiv(F, mesh),
+                       "pipeline": make_pipeline_ldiv(F, mesh)}
+            # the mesh path's launches: counts from 0, one solve each
+            read = _reset_launches("perm_gather", "ldiv_fused")
+            for solve in engines.values():
+                if solve is not None:
+                    x = solve(b)
+            torch.cuda.synchronize()
+            launches = read()
+            if not all(launches.values()):
+                raise AssertionError(f"the mesh engines did not run the "
+                                     f"kernels: {launches}")
+            del x
+            lines = [_engine_case("headline nd R=16", F, b, engines, 20, smi)]
+            prof = {k: _engine_profile(engines[k], b)
+                    for k in ("psum engine", "pipeline")}
+            del F, engines
+            A5, F5, _ = _config5_solver()
+            b5 = torch.as_tensor(rng.random((A5.shape[0], CONFIG5["R"])),
+                                 dtype=torch.float32, device=dev)
+            lines.append(_engine_case(
+                f"config 5 (n={A5.shape[0]}, K={F5.plan.lplan.K}) R=16", F5,
+                b5, {"pipeline": make_pipeline_ldiv(F5, mesh),
+                     "psum engine": make_sharded_ldiv(F5, mesh)}, 3, smi))
+            del F5
+        finally:
+            dist.destroy_process_group()
+        two = _gloo_two_ranks(tmp)
+    print(f"phase 17 mesh engines over NCCL, world size D = 1 (one card): "
+          + " | ".join(lines) + f"; launches of the engines' run {launches}")
+    for k, v in prof.items():
+        print(f"phase 17 profile of the headline {k} on {smi}: {v}")
+    print(f"phase 17 two ranks on the one card over gloo with CUDA tensors: "
+          f"{two}")
+    return launches
+
+
 def _some_phases(phases, smi) -> int:
-    """Only the phases named, of 2-15 (4 runs 3 first, 9 runs 8, 13 runs
+    """Only the phases named, of 2-17 (4 runs 3 first, 9 runs 8, 13 runs
     12); prints no result line."""
-    if not phases or not phases <= set(range(2, 16)):
-        raise SystemExit(f"--phases takes a subset of 2-15, got "
+    if not phases or not phases <= set(range(2, 18)):
+        raise SystemExit(f"--phases takes a subset of 2-17, got "
                          f"{sorted(phases)}")
     if 2 in phases:
         phase_kernels_vs_plain()
@@ -2288,6 +2652,10 @@ def _some_phases(phases, smi) -> int:
         phase_tri_modes(smi)
     if 15 in phases:
         phase_persistence()
+    if 16 in phases:
+        phase_planner()
+    if 17 in phases:
+        phase_mesh_engines(smi)
     print(f"chip_smoke: phases {sorted(phases | {1})} passed (a partial run: "
           f"no result line)")
     return 0
@@ -2300,7 +2668,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=None,
-                        help="run only these of phases 2-15 after phase 1, "
+                        help="run only these of phases 2-17 after phase 1, "
                              "comma-separated (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2333,6 +2701,11 @@ def main() -> int:
     # and "inv_refine": their launches are those solves'
     launches.update(phase_tri_modes(smi))
     phase_persistence()
+    phase_planner()
+    # the mesh engines run perm_gather (psum engine, pipeline) and
+    # ldiv_fused (DP): their launches are that path's
+    for k, v in phase_mesh_engines(smi).items():
+        launches[k] = launches.get(k, 0) + v
     # these kernels are timed by CUDA-graph replay (device time); the others
     # by eager CUDA events (host included)
     graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",

@@ -386,3 +386,53 @@ def test_modes_keep_the_diagonal_tiles(rng):
         ident = torch.bmm(D, data.diag_inv)
         torch.testing.assert_close(ident, torch.eye(8, dtype=D.dtype)
                                    .expand_as(ident), rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The reference's testsets 1-6 on the port's default configuration (no
+# config at all: "auto" resolves to "inv", the CPU default chunk size),
+# mirroring tests/test_solve.py:53-101 at the reference's bars.
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = 1e-10  # the reference's dense bar (test/runtests.jl:26)
+DENSE_SIZES = [1, 2, 3, 7, 8, 9, 20, 33, 64, 100, 129]
+FE_SIZES = [1, 2, 5, 16, 50, 100, 200]
+
+
+def _default_lifecycle(rng, make_matrix, tol):
+    A = make_matrix()
+    n = A.shape[0]
+    F = tlu.ParallelSparseLU(A, device="cpu")
+    assert F.config.tri_mode == "inv"
+    b = rng.random(n)
+    # lsolve / rsolve alone (runtests.jl:38-106)
+    assert_isapprox(F.lsolve(b).numpy(), spla.spsolve_triangular(
+        sp.csr_matrix(F.L), b, lower=True), rtol=tol, atol=tol)
+    assert_isapprox(F.rsolve(b).numpy(), spla.spsolve_triangular(
+        sp.csr_matrix(F.U), b, lower=False), rtol=tol, atol=tol)
+    # full solve, then a new right-hand side (runtests.jl:108-126)
+    for _ in range(2):
+        b = rng.random(n)
+        assert_isapprox(F.ldiv(b).numpy(), spla.spsolve(A, b), rtol=tol,
+                        atol=tol)
+    # new values, refactor in place, solve twice (runtests.jl:129-144)
+    A2 = make_matrix()
+    F.refactor(A2)
+    for _ in range(2):
+        b = rng.random(n)
+        assert_isapprox(F.ldiv(b).numpy(), spla.spsolve(A2, b), rtol=tol,
+                        atol=tol)
+
+
+@pytest.mark.parametrize("n", DENSE_SIZES)
+def test_reference_dense_default_config(rng, n):
+    from tpu_sparse_lu_torch.models import dense_random
+
+    _default_lifecycle(rng, lambda: dense_random(rng, n), DENSE_TOL)
+
+
+@pytest.mark.parametrize("nel", FE_SIZES)
+def test_reference_sparse_default_config(rng, nel):
+    from tpu_sparse_lu_torch.models import fe_block_matrix as fe
+
+    _default_lifecycle(rng, lambda: fe(rng, nel, 5), TOL)

@@ -1010,3 +1010,40 @@ def test_close_releases_refactor_state(rng):
     tf.close()
     assert not tf.has_device_refactor and tf._refactor_dev is None
     assert tf.refactor_diagnostics is None and tf.ldata is None
+
+
+def _refined_oracle(A, b):
+    """scipy's sparse LU solve refined twice with the residual in
+    extended precision (``np.longdouble``): ~1e-16 relative, so the
+    comparison measures the solver under test alone."""
+    A = A.tocsc()
+    lu = spla.splu(A)
+    x = lu.solve(b)
+    Al, bl = A.astype(np.longdouble), np.asarray(b, np.longdouble)
+    for _ in range(2):
+        x = x + lu.solve(np.asarray(bl - Al @ x.astype(np.longdouble),
+                                    np.float64))
+    return x
+
+
+@pytest.mark.parametrize("path", ["refactor_numeric", "fused_step"])
+@pytest.mark.parametrize("tri_mode", ["inv", "trsm", "inv_refine"])
+def test_static_pivots_meet_1e12_with_one_refinement(tri_mode, path):
+    """Static diagonal pivots (nd) on perturbed values can miss 1e-12 in
+    float64 without refinement; one refinement step meets it, after
+    ``refactor_numeric`` (``ldiv(refine_steps=1)``) and in the fused
+    ``make_refactor_solve_step(refine_steps=1)``, in every mode."""
+    A = poisson_2d(40, 40).tocsc()
+    rng = np.random.default_rng(0)
+    A2 = A.copy()
+    A2.data = A.data * (1.0 + 0.05 * rng.standard_normal(A.data.shape))
+    b = rng.random(A.shape[0])
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=64, ordering="nd", dtype="float64", tri_mode=tri_mode),
+        device="cpu")
+    if path == "refactor_numeric":
+        F.refactor_numeric(A2)
+        x = F.ldiv(b, refine_steps=1)
+    else:
+        x = F.make_refactor_solve_step(refine_steps=1)(A2.data, b)
+    assert_isapprox(x.numpy(), _refined_oracle(A2, b), rtol=TOL, atol=0.0)

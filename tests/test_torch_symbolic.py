@@ -6,12 +6,15 @@ package's exactly (the planner is a copy, so any difference is a bug).
 """
 
 import dataclasses
+import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import tpu_sparse_lu as jlu
 import tpu_sparse_lu_torch as tlu
@@ -182,3 +185,193 @@ def test_import_leaves_jax_out():
                          text=True, check=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the native planner core (utils/_symcore.cpp) against the NumPy planner
+# and against the JAX package's plans
+# ---------------------------------------------------------------------------
+
+PLAN_FIELDS = ("tile_brow", "tile_bcol", "diag_dest", "offdiag_dest",
+               "level_chunks", "level_tiles", "pad_idx",
+               "level_chunk_counts", "level_tile_counts")
+FACTOR_CASES = [(m, lower, extra) for m in ("poisson", "fe")
+                for lower in (True, False) for extra in (False, True)]
+
+
+@pytest.fixture
+def core():
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    if shutil.which(os.environ.get("CXX") or "g++") is None:
+        pytest.skip("no C++ compiler to build the native core")
+    c = _symcore_build.native()
+    assert c is not None, "the native planner core did not build"
+    return c
+
+
+@pytest.fixture
+def numpy_planner(monkeypatch):
+    """Force the NumPy planner, as a failed build would."""
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    def forced():
+        monkeypatch.setattr(_symcore_build, "native", lambda: None)
+
+    return forced
+
+
+def _factor(rng, name, lower):
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    A = poisson_2d(30, 30) if name == "poisson" else fe_block_matrix(
+        rng, 40, 5)
+    lu = spla.splu(sp.csc_matrix(A).astype(float), permc_spec="COLAMD")
+    M = (lu.L if lower else lu.U).tocsc()
+    M.sort_indices()
+    return M
+
+
+def _extra(lower, use):
+    if not use:
+        return None
+    return [(5, 2), (7, 1)] if lower else [(2, 5), (1, 7)]
+
+
+@pytest.mark.parametrize("name, lower, extra", FACTOR_CASES)
+def test_plan_maps_native_matches_numpy(rng, core, numpy_planner, name,
+                                        lower, extra):
+    """plan_triangular through the native core (plan_maps and the level
+    recurrence) against the forced NumPy planner, both factors, with and
+    without extra closure tiles: the same arrays and dtypes."""
+    from tpu_sparse_lu_torch import symbolic
+
+    M = _factor(rng, name, lower)
+    p_nat = symbolic.plan_triangular(M, 8, lower=lower,
+                                     extra_tiles=_extra(lower, extra))
+    numpy_planner()
+    p_np = symbolic.plan_triangular(M, 8, lower=lower,
+                                    extra_tiles=_extra(lower, extra))
+    assert (p_nat.K, p_nat.T) == (p_np.K, p_np.T)
+    for f in PLAN_FIELDS:
+        a, b = getattr(p_nat, f), getattr(p_np, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("index_dtype", [np.int32, np.int64])
+def test_native_plan_maps_index_dtypes(rng, core, lower, index_dtype):
+    """int32 and int64 CSC index arrays give the same maps, and a factor
+    with entries on the wrong side raises as the NumPy planner does."""
+    import scipy.sparse as sp
+
+    M = _factor(rng, "fe", lower)
+    K = -(-M.shape[0] // 8)
+    want = core.plan_maps(M.indptr.astype(np.int64),
+                          M.indices.astype(np.int64), 8, K, lower,
+                          np.zeros(0, np.int64))
+    got = core.plan_maps(M.indptr.astype(index_dtype),
+                         M.indices.astype(index_dtype), 8, K, lower,
+                         np.zeros(0, np.int64))
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    wrong = sp.csc_matrix(M.T)
+    with pytest.raises(ValueError, match="wrong side"):
+        core.plan_maps(wrong.indptr, wrong.indices, 8, K, lower,
+                       np.zeros(0, np.int64))
+
+
+@pytest.mark.parametrize("name, lower", [(m, lo) for m in ("poisson", "fe")
+                                         for lo in (True, False)])
+def test_level_schedule_native_matches_numpy(rng, core, numpy_planner, name,
+                                             lower):
+    from tpu_sparse_lu_torch import symbolic
+
+    p = symbolic.plan_triangular(_factor(rng, name, lower), 8, lower=lower)
+    ub, uc = p.tile_brow[: p.T].astype(np.int64), p.tile_bcol[: p.T]
+    nat = symbolic._level_schedule(ub, uc, p.K, lower)
+    numpy_planner()
+    ref = symbolic._level_schedule(ub, uc, p.K, lower)
+    assert nat.dtype == ref.dtype == np.int64 and np.array_equal(nat, ref)
+
+
+@pytest.mark.parametrize("family", sorted(MATRICES))
+def test_blocked_fill_native_matches_python_and_jax(rng, core, numpy_planner,
+                                                    family):
+    """The closure from the native core, from the Python loop and from
+    the JAX package's ``blocked_fill`` on the same tile set."""
+    from tpu_sparse_lu.refactor import blocked_fill as jax_fill
+    from tpu_sparse_lu_torch.refactor import blocked_fill
+
+    tf = tlu.ParallelSparseLU(MATRICES[family](rng), config=SolverConfig(
+        chunk_size=8), device="cpu")
+    tiles = set()
+    for tp in (tf.plan.lplan, tf.plan.uplan):
+        tiles |= set(zip(tp.tile_brow[: tp.T].tolist(),
+                         tp.tile_bcol[: tp.T].tolist()))
+    K = tf.plan.lplan.K
+    nat = blocked_fill(tiles, K)
+    assert nat == jax_fill(tiles, K)
+    numpy_planner()
+    assert blocked_fill(tiles, K) == nat
+    assert blocked_fill(set(), 3) == {(0, 0), (1, 1), (2, 2)}
+
+
+@pytest.mark.parametrize("name, lower, extra", FACTOR_CASES)
+def test_native_plans_equal_jax(rng, core, name, lower, extra):
+    """The port's plan_triangular (native core) equals the JAX package's
+    array by array on the same factor."""
+    from tpu_sparse_lu import symbolic as jsym
+    from tpu_sparse_lu_torch import symbolic
+
+    M = _factor(rng, name, lower)
+    got = symbolic.plan_triangular(M, 8, lower=lower,
+                                   extra_tiles=_extra(lower, extra))
+    want = jsym.plan_triangular(M, 8, lower=lower,
+                                extra_tiles=_extra(lower, extra))
+    for f in PLAN_FIELDS:
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+def test_native_build_failure_warns_and_serves(tmp_path, rng):
+    """A compiler that does not exist: the build warns once with the
+    cause and returns None, raising nothing; the NumPy planner serves."""
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    src = tmp_path / "_symcore.cpp"
+    src.write_bytes(_symcore_build._SRC.read_bytes())
+    with pytest.warns(RuntimeWarning, match="did not build.*NumPy"):
+        got = _symcore_build.load(src, tmp_path / "build",
+                                  cxx=str(tmp_path / "no-such-g++"))
+    assert got is None
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_native_build_is_keyed_by_source(tmp_path, core):
+    """An edited source builds a new library; the same source loads the
+    one it built."""
+    from tpu_sparse_lu_torch.utils import _symcore_build
+
+    src = tmp_path / "_symcore.cpp"
+    src.write_bytes(_symcore_build._SRC.read_bytes())
+    out = tmp_path / "build"
+    assert _symcore_build.load(src, out) is not None
+    first = sorted(out.glob("*.so"))
+    assert _symcore_build.load(src, out) is not None
+    assert sorted(out.glob("*.so")) == first and len(first) == 1
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    assert _symcore_build.load(src, out) is not None
+    assert len(list(out.glob("*.so"))) == 2
+
+
+def test_root_exports_match_jax():
+    """The port's package root exports the JAX package's public names
+    (and its own ``models``)."""
+    assert set(tlu.__all__) - {"models"} == set(jlu.__all__)
+    for name in tlu.__all__:
+        assert getattr(tlu, name) is not None
+    x = tlu.allocate_shared((4, 3), device="cpu")
+    assert x.shape == (4, 3) and x.dtype == torch.float32
+    assert float(x.abs().sum()) == 0.0

@@ -8,18 +8,41 @@ plain PyTorch versions on the CPU. Imports no JAX.
 
 * :class:`ParallelSparseLU` — factor once, solve many, refactor in place.
 * :func:`cleanup_ParallelSparseLU` — buffer release (reference export).
+* :func:`allocate_shared` — a zero tensor shared over a device mesh
+  (``DTensor``), the counterpart of the reference's MPI shared-memory
+  window export; the mesh engines are :mod:`.parallel`.
+* Symbolic layer: :func:`factorize_host`, :class:`SymbolicPlan`,
+  :func:`plan_triangular` (with the native planner core of
+  ``utils/_symcore.cpp`` when it builds).
 * :class:`SolverConfig` — static configuration.
 * :mod:`models` — the test and benchmark matrix families.
 """
 
 from . import models
 from .api import ParallelSparseLU, cleanup_ParallelSparseLU
-from .utils.config import SolverConfig
+from .parallel.mesh import allocate_shared
+from .symbolic import (
+    HostFactors,
+    SymbolicPlan,
+    TriPlan,
+    build_symbolic_plan,
+    factorize_host,
+    plan_triangular,
+)
+from .utils.config import SolverConfig, default_chunk_size
 
 __all__ = [
     "ParallelSparseLU",
-    "SolverConfig",
     "cleanup_ParallelSparseLU",
+    "allocate_shared",
+    "HostFactors",
+    "SymbolicPlan",
+    "TriPlan",
+    "build_symbolic_plan",
+    "factorize_host",
+    "plan_triangular",
+    "SolverConfig",
+    "default_chunk_size",
     "models",
 ]
 

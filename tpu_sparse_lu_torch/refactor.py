@@ -46,6 +46,7 @@ from .symbolic import (
     dataclass_from_arrays,
     plan_triangular,
 )
+from .utils import _symcore_build
 
 __all__ = [
     "blocked_fill",
@@ -68,8 +69,18 @@ __all__ = [
 def blocked_fill(tiles: set, K: int) -> set:
     """Close a tile pattern under blocked elimination:
     (i,k) and (k,j) present with i,j > k  ⇒  (i,j) present.
-    Also guarantees every diagonal tile. (The JAX package's native
-    ``_symcore`` closure is not ported: ROADMAP A12.)"""
+    Also guarantees every diagonal tile. Uses the native core when it
+    built (``utils/_symcore_build.native``, as the JAX package's
+    ``_symcore``), else the Python closure below; both give the same set.
+    """
+    core = _symcore_build.native()
+    if core is not None:
+        if tiles:
+            br, bc = map(np.asarray, zip(*tiles))
+        else:
+            br = bc = np.zeros(0, dtype=np.int64)
+        r, c = core.blocked_fill(br, bc, K)
+        return set(zip(r.tolist(), c.tolist()))
     S = set(tiles)
     for k in range(K):
         S.add((k, k))

@@ -24,10 +24,11 @@ plans — the same symbolic/numeric split the reference uses to make ``lu!``
 cheap (src:245-279).
 
 This is a copy of ``tpu_sparse_lu/symbolic.py`` (importing that module
-would import JAX through its package ``__init__``) restricted to the NumPy
-planner: the native ``_symcore`` core is not carried over. The plans it
-produces are identical, and :meth:`SymbolicPlan.save` writes the JAX
-package's file.
+would import JAX through its package ``__init__``). As there, the level
+recurrence and the per-nonzero pass of :func:`plan_triangular` run in the
+native core (``utils/_symcore.cpp``, built with ``g++`` at first use)
+when it builds, else in NumPy; the plans are identical either way and to
+the JAX package's, and :meth:`SymbolicPlan.save` writes its file.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+
+from .utils import _symcore_build
 
 __all__ = [
     "HostFactors",
@@ -211,11 +214,15 @@ def _level_schedule(ub: np.ndarray, uc: np.ndarray, K: int, lower: bool) -> np.n
     """Longest-path level of each chunk in the tile DAG.
 
     ``ub``/``uc`` are tile (brow, bcol) sorted by brow, so each chunk's
-    dependency list is a contiguous run.
+    dependency list is a contiguous run. Uses the native core when it
+    built (``utils/_symcore_build.native``), else the NumPy recurrence.
     """
     level = np.zeros(K, dtype=np.int64)
     if K == 0 or ub.size == 0:
         return level
+    core = _symcore_build.native()
+    if core is not None:
+        return core.level_schedule(ub, uc, K, lower)
     starts = np.searchsorted(ub, np.arange(K + 1))
     order = range(K) if lower else range(K - 1, -1, -1)
     for k in order:
@@ -258,47 +265,60 @@ def plan_triangular(
                                  "diagonal")
             extra_keys = extra[:, 0] * np.int64(K) + extra[:, 1]
 
-    # --- tile keys --------------------------------------------------------
-    cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    brow = rows // cs
-    bcol = cols // cs
+    # --- tile keys + pack scatter maps (one native pass when built) -----
+    # the O(nnz) middle (unique tile keys and per-nonzero pack
+    # destinations, the reference's fill_chunks! dest computation,
+    # src:180-243): the NumPy version below materializes several
+    # nnz-length temporaries
+    core = _symcore_build.native()
+    if core is not None:
+        uniq_keys, diag_dest, offdiag_dest = core.plan_maps(
+            indptr, rows, cs, K, lower, extra_keys)
+        T = uniq_keys.shape[0]
+        ub = uniq_keys // K
+        uc = uniq_keys % K
+    else:
+        cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        brow = rows // cs
+        bcol = cols // cs
 
-    offdiag_mask = brow > bcol if lower else brow < bcol
-    diag_mask = brow == bcol
-    # Sanity: a triangular factor has no entries on the wrong side.
-    if not np.all(offdiag_mask | diag_mask):
-        bad = np.count_nonzero(~(offdiag_mask | diag_mask))
-        raise ValueError(
-            f"{bad} entries on the wrong side of the diagonal for "
-            f"{'lower' if lower else 'upper'} factor"
-        )
+        offdiag_mask = brow > bcol if lower else brow < bcol
+        diag_mask = brow == bcol
+        # Sanity: a triangular factor has no entries on the wrong side.
+        if not np.all(offdiag_mask | diag_mask):
+            bad = np.count_nonzero(~(offdiag_mask | diag_mask))
+            raise ValueError(
+                f"{bad} entries on the wrong side of the diagonal for "
+                f"{'lower' if lower else 'upper'} factor"
+            )
 
-    # Tiles are keyed as brow*K + bcol; np.unique on keys replaces any
-    # per-nonzero Python loop (23s -> ms at n=250k).
-    od_keys = brow[offdiag_mask] * np.int64(K) + bcol[offdiag_mask]
-    if extra_keys.size:
-        od_keys = np.concatenate([od_keys, extra_keys])
-    uniq_keys = np.unique(od_keys)
-    T = uniq_keys.shape[0]
-    ub = uniq_keys // K
-    uc = uniq_keys % K
+        # Tiles are keyed as brow*K + bcol; np.unique on keys replaces any
+        # per-nonzero Python loop (23s -> ms at n=250k).
+        od_keys = brow[offdiag_mask] * np.int64(K) + bcol[offdiag_mask]
+        if extra_keys.size:
+            od_keys = np.concatenate([od_keys, extra_keys])
+        uniq_keys = np.unique(od_keys)
+        T = uniq_keys.shape[0]
+        ub = uniq_keys // K
+        uc = uniq_keys % K
 
-    # --- pack scatter maps (reference fill_chunks!, src:180-243) ------------
-    lr = rows % cs
-    lc = cols % cs
-    # Destinations for the "other" buffer are one-past-the-end: the packer
-    # drops them, so they vanish instead of polluting the dummy tiles.
-    diag_dest = np.full(nnz, (K + 1) * cs * cs, dtype=np.int64)
-    offdiag_dest = np.full(nnz, (T + 1) * cs * cs, dtype=np.int64)
-    dsel = diag_mask
-    diag_dest[dsel] = (brow[dsel] * cs + lr[dsel]) * cs + lc[dsel]
-    osel = offdiag_mask
-    if np.any(osel):
-        # tile id of each nonzero = position of its key in uniq_keys
-        t_of_nz = np.searchsorted(
-            uniq_keys, brow[osel] * np.int64(K) + bcol[osel]
-        )
-        offdiag_dest[osel] = (t_of_nz * cs + lr[osel]) * cs + lc[osel]
+        # --- pack scatter maps (reference fill_chunks!, src:180-243) ---
+        lr = rows % cs
+        lc = cols % cs
+        # Destinations for the "other" buffer are one-past-the-end: the
+        # packer drops them, so they vanish instead of polluting the dummy
+        # tiles.
+        diag_dest = np.full(nnz, (K + 1) * cs * cs, dtype=np.int64)
+        offdiag_dest = np.full(nnz, (T + 1) * cs * cs, dtype=np.int64)
+        dsel = diag_mask
+        diag_dest[dsel] = (brow[dsel] * cs + lr[dsel]) * cs + lc[dsel]
+        osel = offdiag_mask
+        if np.any(osel):
+            # tile id of each nonzero = position of its key in uniq_keys
+            t_of_nz = np.searchsorted(
+                uniq_keys, brow[osel] * np.int64(K) + bcol[osel]
+            )
+            offdiag_dest[osel] = (t_of_nz * cs + lr[osel]) * cs + lc[osel]
 
     # pack maps are per-NONZERO: at n ~ 1e5 they are the plan's dominant
     # memory (and the dominant bytes of ParallelSparseLU.save). int32
