@@ -68,7 +68,10 @@ Phases, one line of output each; any failure raises and exits non-zero:
    each assembly kernel alone, ``span_gather``/``lu_tile`` against
    ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off), and
    ``lu_tile`` with and without the inverses on the headline's 23
-   level-0 tiles and on config 2's one-tile level 0;
+   level-0 tiles and on config 2's one-tile level 0, float32 and
+   float64, and the identity residuals of its inverses on the headline's
+   level-0 tiles (``||X L - I||``, ``||Y U - I||`` in float64 on the
+   host, at most 10 times the plain twin's);
 10. the chain kernel (B5, ``bidiag_ldiv``) against its plain version on
     seeded random bands (|a| <= 0.9) at n in {7, 128, 257, 5000, 20000,
     1,048,577} and R in {1, 3, 16} (and 64 up to n = 20,000, 300 at
@@ -1305,6 +1308,22 @@ def phase_refactor_timing(A2c, F2c, step, smi):
     diag2 = F2c._refactor_dev.elim.levels[0].diag
     ms["lu_tile_config2_device"] = _lu_tile_ms(store2, diag2, True)
     ms["lu_tile_config2_device_lu"] = _lu_tile_ms(store2, diag2, False)
+    res = {"float32": _identity_residuals(store, lvl0.diag)}
+    # the same in float64
+    A64, F64 = _device_headline("float64")
+    store64, _ = _real_store(F64, A64, plain=True)
+    diag64 = F64._refactor_dev.elim.levels[0].diag
+    res["float64"] = _identity_residuals(store64, diag64)
+    A2_64, F2_64 = _config2_solver("float64")
+    F2_64.enable_device_refactor()
+    store2_64, _ = _real_store(F2_64, A2_64, plain=True)
+    diag2_64 = F2_64._refactor_dev.elim.levels[0].diag
+    for tag, st, dg in (("", store64, diag64),
+                        ("config2_", store2_64, diag2_64)):
+        for inverses, suffix in ((True, ""), (False, "_lu")):
+            ms[f"lu_tile_{tag}device{suffix}_f64"] = _lu_tile_ms(st, dg,
+                                                                 inverses)
+    del F64, F2_64
     print(f"phase 9 library calls on {smi} (CUDA-graph replay, TF32 off): "
           f"span_gather kernel {ms['span_gather_device']:.4f} ms vs "
           f"index_select {ms['span_gather_library']:.4f} ms; lu_tile on the "
@@ -1317,7 +1336,54 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"({diag2.shape[0]} tile) with inverses "
           f"{ms['lu_tile_config2_device']:.4f} ms, LU alone "
           f"{ms['lu_tile_config2_device_lu']:.4f} ms")
+    print(f"phase 9 lu_tile float64 on {smi} (CUDA-graph replay): the {nb} "
+          f"level-0 tiles with inverses {ms['lu_tile_device_f64']:.4f} ms, "
+          f"LU alone {ms['lu_tile_device_lu_f64']:.4f} ms; config 2's "
+          f"level 0 with inverses {ms['lu_tile_config2_device_f64']:.4f} ms,"
+          f" LU alone {ms['lu_tile_config2_device_lu_f64']:.4f} ms; "
+          f"identity residuals max_t ||X L - I||_F / ||I||_F, "
+          f"||Y U - I||_F / ||I||_F on the headline's {nb} level-0 tiles "
+          f"(float64 on the host), kernel / plain: " + "; ".join(
+              f"{dt} L {r['lu_tile'][0]:.3e} / {r['lu_tile_plain'][0]:.3e}, "
+              f"U {r['lu_tile'][1]:.3e} / {r['lu_tile_plain'][1]:.3e}"
+              for dt, r in res.items()))
     return ms
+
+
+def _identity_residuals(store, diag):
+    """``{"lu_tile": (rl, ru), "lu_tile_plain": ...}``: the largest over
+    the tiles ``store[diag]`` of ``||X L - I||_F / ||I||_F`` and
+    ``||Y U - I||_F / ||I||_F``, X and Y the inverses each writes beside
+    the factor L\\U it writes, in float64 on the host. The kernel's must
+    be finite and at most 10 times the plain twin's (its triangular solves
+    against I): the blocked inverses as accurate as a substitution to
+    within an order of magnitude."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.lu_tile import lu_tile, lu_tile_plain
+
+    nb, cs = diag.shape[0], store.shape[1]
+    eye = torch.eye(cs, dtype=torch.float64)
+    out = {}
+    for name, fn in (("lu_tile", lu_tile), ("lu_tile_plain", lu_tile_plain)):
+        t = store.clone()
+        inv = [torch.zeros((nb, cs, cs), dtype=t.dtype, device="cuda")
+               for _ in range(2)]
+        fn(t, diag, linv=inv[0], uinv=inv[1])
+        M = t[diag.long()].double().cpu()
+        X, Y = (x.double().cpu() for x in inv)
+        L = torch.tril(M, -1) + eye
+        U = torch.triu(M)
+        out[name] = tuple(
+            float(torch.linalg.matrix_norm(P @ F - eye).max()) / cs ** 0.5
+            for P, F in ((X, L), (Y, U)))
+    for k, (got, ref) in enumerate(zip(out["lu_tile"],
+                                       out["lu_tile_plain"])):
+        if not (np.isfinite(got) and got <= 10 * ref):
+            raise AssertionError(
+                f"lu_tile's {'LU'[k]} inverse: identity residual {got:.3e} "
+                f"against the plain twin's {ref:.3e} ({store.dtype})")
+    return out
 
 
 def _assembly_times(deployments, ms, smi):

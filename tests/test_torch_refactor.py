@@ -39,7 +39,7 @@ from tpu_sparse_lu.models import (
     laplacian_1d,
     poisson_2d,
 )
-from tpu_sparse_lu.ops.pallas_elim import fused_elimination
+from tpu_sparse_lu.ops.pallas_elim import _neumann_inv, fused_elimination
 from tpu_sparse_lu.ops.pallas_factor import lu_tile as jax_lu_tile
 from tpu_sparse_lu.ops.pallas_span import span_gather as jax_span_gather
 from tpu_sparse_lu.refactor import _blocked_elimination, _lu_nopivot
@@ -55,6 +55,7 @@ from tpu_sparse_lu_torch.ops.elimination import (
 )
 from tpu_sparse_lu_torch.ops.lu_tile import lu_nopivot, lu_tile
 from tpu_sparse_lu_torch.ops.span_gather import span_gather, span_gather_plain
+from tpu_sparse_lu_torch.ops.tri_inverse import tri_inverse
 from tpu_sparse_lu_torch.refactor import blocked_fill
 
 INV_TOL = 1e-9
@@ -402,6 +403,90 @@ def test_lu_tile_wrapper_in_place_with_inverses(rng):
     for t in (1, 2, 4):  # untouched
         np.testing.assert_array_equal(tiles[t].numpy(), tiles0[t])
     assert lu_tile.LAUNCHES == 0
+
+
+def _blocked_inverses(M):
+    """``(L⁻¹, U⁻¹)`` of a merged L\\U tile in the order of the CUDA
+    kernel's inverse pass (``csrc/lu_tile.cu``), in place over a copy
+    ``S`` of the factor (its shared-memory tile, rows padded with NaN):
+    each 32 x 32 diagonal block inverted by substitution into its own
+    triangles, then for s = 1 .. nb-1 block row s of L⁻¹ and block column
+    s of U⁻¹, every sum of the step taken before any of its results is
+    stored (the kernel's block barrier)."""
+    cs, K = M.shape[0], 32
+    nb = -(-cs // K)
+    S = np.full((cs, 132), np.nan, M.dtype)
+    S[:, :cs] = M
+
+    def blk(i):
+        return slice(K * i, min(K * (i + 1), cs))
+
+    for b in range(nb):
+        D = S[blk(b), blk(b)]
+        w = D.shape[0]
+        X = np.eye(w, dtype=M.dtype)
+        for m in range(1, w):  # columns at once: lane c holds column c
+            X[m] -= D[m, :m] @ X[:m]
+        Y = np.eye(w, dtype=M.dtype)
+        for m in reversed(range(w)):
+            Y[m] = (Y[m] - D[m, m + 1:] @ Y[m + 1:]) * (1 / D[m, m])
+        S[blk(b), blk(b)] = np.tril(X, -1) + np.triu(Y)
+
+    def diag(s, lower):  # X_ss (unit lower) or Y_ss from the diagonal slot
+        B = S[blk(s), blk(s)]
+        return np.tril(B, -1) + np.eye(B.shape[0], dtype=M.dtype) if lower \
+            else np.triu(B)
+
+    def inv(i, j, lower):  # a finished block of X or Y
+        return diag(i, lower) if i == j else S[blk(i), blk(j)]
+
+    for s in range(1, nb):
+        T = {j: sum(S[blk(s), blk(k)] @ inv(k, j, True) for k in range(j, s))
+             for j in range(s)}
+        U = {i: sum(inv(i, k, False) @ S[blk(k), blk(s)] for k in range(i, s))
+             for i in range(s)}
+        for j in range(s):  # after the barrier: each over its own slot
+            S[blk(s), blk(j)] = -(diag(s, True) @ T[j])
+        for i in range(s):
+            S[blk(i), blk(s)] = -(U[i] @ diag(s, False))
+    F = S[:, :cs]
+    return np.tril(F, -1) + np.eye(cs, dtype=M.dtype), np.triu(F)
+
+
+def _rel(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("cs", [16, 45, 100, 128])
+def test_blocked_inverses_match_tri_inverse_and_jax(rng, cs, dtype):
+    """The block recurrence of the CUDA ``lu_tile`` kernel against the
+    port's ``tri_inverse`` (the plain twin's inverses) and JAX's
+    ``_neumann_inv`` (``pallas_elim.py:110``, plain jnp), on seeded
+    diagonally dominant tiles at the sizes the card holds the kernel to:
+    one partial block (16), ragged last blocks (45, 100) and whole ones.
+    Against ``tri_inverse`` at the kernel's bound against its plain twin
+    (``chip_smoke.LU_TOL``: 1e-5 / 1e-12 max relative, summation order
+    only); against JAX at 1e-5 in both types, since ``_neumann_inv``'s
+    products accumulate in float32 (``preferred_element_type``)."""
+    tol = {"float32": 1e-5, "float64": 1e-12}[dtype]
+    D = (rng.standard_normal((cs, cs)) + cs * np.eye(cs)).astype(dtype)
+    M = lu_nopivot(torch.as_tensor(D)).numpy()
+    X, Y = _blocked_inverses(M)
+    eye = np.eye(cs, dtype=dtype)
+    L, U = np.tril(M, -1) + eye, np.triu(M)
+    assert _rel(X, tri_inverse(torch.as_tensor(L)[None], lower=True)[0]
+                .numpy()) <= tol
+    assert _rel(Y, tri_inverse(torch.as_tensor(U)[None], lower=False)[0]
+                .numpy()) <= tol
+    assert np.abs(X @ L - eye).max() <= 10 * tol
+    assert np.abs(Y @ U - eye).max() <= 10 * tol
+    M32 = jnp.asarray(M.astype(np.float32))
+    du = jnp.diagonal(M32)
+    jx = _neumann_inv(-jnp.tril(M32, -1))
+    jy = _neumann_inv(-(jnp.triu(M32, 1) / du[:, None])) / du[None, :]
+    assert _rel(X, np.asarray(jx, np.float64)) <= 1e-5
+    assert _rel(Y, np.asarray(jy, np.float64)) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
 """Build versions of the tile LU kernel (B2) side by side and time them.
 
-    python3 tools/lu_tile_sweep.py [--unroll1] [--clocks] [NAME=PATH.cu ...]
+    python3 tools/lu_tile_sweep.py [--clocks] [NAME=PATH.cu ...]
 
 Needs one CUDA card and ``nvcc``. Each version is a copy of
 ``csrc/lu_tile.cu`` (the shipped one as ``shipped``, and any other source
-given as ``NAME=PATH``; ``--unroll1`` adds, for each source that has
-them, a copy with ``#pragma unroll 1`` on its ``w0`` step loops). Every
+given as ``NAME=PATH``, e.g. an older commit's from ``git show``). Every
 version is built alone into a side library under
 ``tpu_sparse_lu_torch/_build/sweep/`` (one ``nvcc -Xptxas -v`` each, all
 started together); the script prints the registers, stack and spills of
@@ -16,13 +15,15 @@ each library in turn, it holds each version against ``lu_tile_plain``
 (``chip_smoke.LU_TOL``, seeded tiles at ``chip_smoke.LU_SIZES``, float32
 and float64, with and without the inverses) and times it by CUDA-graph
 replay (``chip_smoke._lu_tile_ms``) on the headline's 23 level-0 tiles
-and on config 2's one-tile level 0, float32, with both inverses and the
-LU alone. The versions are timed in turns, forwards then backwards, and
-both readings are printed. ``--clocks`` adds the shipped source built with
-``-DLU_TILE_CLOCKS`` and prints, for block 0 of one launch with both
-inverses at each of those shapes, the SM cycles of each phase of the
+and on config 2's one-tile level 0, float32 and float64, with both
+inverses and the LU alone. The versions are timed in turns, forwards then
+backwards, and both readings are printed. ``--clocks`` adds each version
+built with ``-DLU_TILE_CLOCKS`` and prints, for block 0 of one launch with
+both inverses at each of those shapes, the SM cycles of each phase of the
 kernel (load, diagonal blocks, panel solves, trailing updates,
-write-back and pivot, inverse pass).
+write-back and pivot, the inverses' diagonal blocks, their off-diagonal
+fill and write-out; a version with another count of phases is printed by
+phase number).
 """
 
 import ctypes
@@ -39,11 +40,20 @@ import chip_smoke  # noqa: E402
 
 SHIPPED = ROOT / "tpu_sparse_lu_torch" / "csrc" / "lu_tile.cu"
 OUT = ROOT / "tpu_sparse_lu_torch" / "_build" / "sweep"
-_W0_LOOP = re.compile(r"^(\s*)(for \(int w0 = 0;)", re.M)
+# the initializer of the clock build's per-phase sums: one 0 a phase
+_CLOCK_SUMS = re.compile(r"clk_\[\w+\] = \{([^}]*)\}")
 
 
 CLOCK_PHASES = ("load", "diagonal blocks", "panel solves", "trailing updates",
-                "write-back and pivot", "inverse pass")
+                "write-back and pivot", "inverse diagonal blocks",
+                "inverse off-diagonal fill and write-out")
+
+
+def _phase_labels(text):
+    """The clock build's phase labels of a version's source."""
+    n = len(_CLOCK_SUMS.search(text).group(1).split(","))
+    return (CLOCK_PHASES if n == len(CLOCK_PHASES)
+            else tuple(f"phase {p}" for p in range(n)))
 
 
 def _versions(args):
@@ -55,15 +65,10 @@ def _versions(args):
         if not path:
             raise SystemExit(f"expected NAME=PATH.cu, got {a!r}")
         srcs.append((name, Path(path).read_text(), []))
-    out = list(srcs)
-    if args.unroll1:
-        for name, text, _ in srcs:
-            if _W0_LOOP.search(text):
-                out.append((f"{name}_unroll1", _W0_LOOP.sub(
-                    r"\1#pragma unroll 1\n\1\2", text), []))
     if args.clocks:
-        out.append(("shipped_clocks", srcs[0][1], ["-DLU_TILE_CLOCKS"]))
-    return out
+        srcs += [(f"{name}_clocks", text, ["-DLU_TILE_CLOCKS"])
+                 for name, text, _ in srcs]
+    return srcs
 
 
 def _build(versions):
@@ -162,7 +167,7 @@ def _check(name, rng):
           f"; cs in {list(chip_smoke.LU_SIZES)}, with and without inverses)")
 
 
-def _clocks(cases):
+def _clocks(name, labels, cases):
     """Cycles of each phase of block 0, one launch with both inverses at
     each shape, through the wrapper's current library."""
     import torch
@@ -182,10 +187,10 @@ def _clocks(cases):
         for _ in range(3):  # the last of three launches
             lu_tile(store.clone(), diag, **inv)
         torch.cuda.synchronize()
-        cyc = inv["uinv"][0].flatten()[:len(CLOCK_PHASES)].tolist()
-        print(f"shipped_clocks {label}, block 0, SM cycles (clocks.sm, "
+        cyc = inv["uinv"][0].flatten()[:len(labels)].tolist()
+        print(f"{name} {label}, block 0, SM cycles (clocks.sm, "
               f"clocks.max.sm: {clock}): " + ", ".join(
-                  f"{p} {int(c)}" for p, c in zip(CLOCK_PHASES, cyc))
+                  f"{p} {int(c)}" for p, c in zip(labels, cyc))
               + f"; sum {int(sum(cyc))}")
 
 
@@ -198,12 +203,9 @@ def main() -> int:
     from tpu_sparse_lu_torch.ops import lu_tile as LT
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--unroll1", action="store_true",
-                        help="add a copy of each source with #pragma "
-                             "unroll 1 on its w0 step loops")
     parser.add_argument("--clocks", action="store_true",
-                        help="add the shipped source built with "
-                             "-DLU_TILE_CLOCKS and print its phase cycles")
+                        help="add each version built with -DLU_TILE_CLOCKS "
+                             "and print its phase cycles")
     parser.add_argument("sources", nargs="*", help="NAME=PATH.cu")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -220,20 +222,23 @@ def main() -> int:
     for name, *_ in versions:
         _static_facts(name, *built[name])
     libs = {name: _bind(built[name][0]) for name, *_ in versions}
-    timed = [name for name, *_ in versions if name != "shipped_clocks"]
+    clocked = [(name, _phase_labels(text)) for name, text, flags in versions
+               if flags]
+    timed = [name for name, _, flags in versions if not flags]
 
     # the shapes: the headline's level 0 (23 tiles), config 2's (1 tile)
-    A, F = chip_smoke._device_headline("float32")
-    A2, F2 = chip_smoke._config2_solver()
-    F2.enable_device_refactor()
     cases = []
-    for tag, Fx, Ax in (("headline", F, A), ("config2", F2, A2)):
-        store, _ = chip_smoke._real_store(Fx, Ax, plain=True)
-        diag = Fx._refactor_dev.elim.levels[0].diag
-        for inverses in (True, False):
-            cases.append((f"{tag} {diag.shape[0]} tiles "
-                          + ("LU + inverses" if inverses else "LU alone"),
-                          store, diag, inverses))
+    for dt in ("float32", "float64"):
+        A, F = chip_smoke._device_headline(dt)
+        A2, F2 = chip_smoke._config2_solver(dt)
+        F2.enable_device_refactor()
+        for tag, Fx, Ax in (("headline", F, A), ("config2", F2, A2)):
+            store, _ = chip_smoke._real_store(Fx, Ax, plain=True)
+            diag = Fx._refactor_dev.elim.levels[0].diag
+            for inverses in (True, False):
+                cases.append((f"{tag} {dt} {diag.shape[0]} tiles "
+                              + ("LU + inverses" if inverses
+                                 else "LU alone"), store, diag, inverses))
     rng = np.random.default_rng(14)
     own = LT.lib
     times = {name: {c[0]: [] for c in cases} for name in timed}
@@ -241,9 +246,9 @@ def main() -> int:
         for name in timed:
             LT.lib = lambda L=libs[name]: L
             _check(name, rng)
-        if "shipped_clocks" in libs:
-            LT.lib = lambda L=libs["shipped_clocks"]: L
-            _clocks(cases)
+        for name, labels in clocked:
+            LT.lib = lambda L=libs[name]: L
+            _clocks(name, labels, cases)
         for turn in (timed, timed[::-1]):
             for name in turn:
                 LT.lib = lambda L=libs[name]: L
