@@ -41,28 +41,40 @@ Phases, one line of output each; any failure raises and exits non-zero:
    plain route on seeded random patterns at cs 16 and 128 and on the real
    stores of both deployments — the headline and BASELINE config 2
    (``block_banded(rng, 120, 30)``, colamd, chunk_size=128) — in float32
-   and float64; then those stores eliminated by the kernels and by the
-   plain versions (bounds: ``LU_TOL`` and ``ELIM_TOL``, max relative
-   difference over the real tiles);
+   and float64; then those stores eliminated by the per-level route
+   (``lu_tile`` + three ``tile_mm`` a level) and by its plain version
+   (bounds: ``LU_TOL`` and ``ELIM_TOL``, max relative difference over the
+   real tiles), and by the one-launch elimination ``elim_fused`` at grid
+   sizes 1, 7 and the default, each bit for bit equal to the per-level
+   route and within ``ELIM_TOL`` of its plain twin; then
+   ``refactor_numeric``'s pipeline captured in a CUDA graph on each
+   deployment (float32), 10 replays on fresh seeded values, each bit for
+   bit equal to its eager run;
 7. the device lifecycle on the headline: construct with
    ``factorize="auto"`` (device under nd: no SuperLU), ``ldiv`` (same
    bars as phase 3), ``refactor_numeric`` with seeded same-pattern values
    then ``ldiv``, ``refactor_numeric(check=True)`` on benign values, and a
    float64 device-factorized solver held to 1e-9 of ``spsolve`` after
    ``refactor_numeric``; every kernel launched, every solve one
-   ``ldiv_fused`` launch and no ``span_gather``; then the yardstick
-   assembly (``span_gather``) bit for bit equal to the two assembly
-   kernels on the last values;
+   ``ldiv_fused`` launch, every refactorization one ``elim_fused``
+   launch, and no ``span_gather``, ``lu_tile`` or ``tile_mm``; then the
+   yardstick assembly (``span_gather``) bit for bit equal to the two
+   assembly kernels, and the per-level elimination (``lu_tile``,
+   ``tile_mm``) to ``elim_fused``, on the last values;
 8. BASELINE config 2's fused step at full size: ``make_refactor_solve_step``
    at R = 8 on ``1.01 * A``, backward error < 1e-3 (the gate of
-   ``bench.py:261-270``);
+   ``bench.py:261-270``), one ``elim_fused`` and one ``ldiv_fused``
+   launch;
 9. timing (CUDA events, medians): the config-2 step, ``refactor_numeric``
    on both deployments with the kernels against ``plain=True``, and each
    refactorization kernel at the headline's shapes; then device times by
    CUDA-graph replay: every tile product of one elimination (headline and
    config 2) against ``torch.bmm`` on the same products, the
-   ``refactor_numeric`` pipeline, the elimination less its tile products
-   (its ``lu_tile`` launches), the assembly alone (two launches against
+   elimination as one ``elim_fused`` launch, as the per-level route and
+   as the per-level route with ``bmm`` products, the config-2 step, the
+   ``refactor_numeric`` pipeline, the per-level elimination less its
+   tile products (its ``lu_tile`` launches), the one launch's chain bound
+   (levels times ``lu_tile`` on one tile), the assembly alone (two launches against
    the yardstick route, eager and by replay) and the extraction (the
    pipeline less the elimination and the assembly) on both deployments,
    each assembly kernel alone, ``span_gather``/``lu_tile`` against
@@ -157,7 +169,8 @@ library call's time or null), and last the device JSON line. Exits
 non-zero with no result when CUDA is not available.
 ``--phases 2,3,5`` runs phase 1 and only the phases named, of 2-17, with
 no result line (for iterating on one kernel: 2,3,5 for the ldiv kernels,
-6,9 for the refactorization kernels and the assembly, 10,11,13 for the
+6,9 for the refactorization kernels and the assembly, 6,7,9 for the
+one-launch elimination, 10,11,13 for the
 chain kernel, 14,15 for the tri modes and persistence, 16,17 for the
 planner core and the mesh engines).
 """
@@ -201,6 +214,8 @@ KERNELS = {
                 "tpu_sparse_lu/ops/pallas_factor.py:38"),
     "tile_mm": ("tpu_sparse_lu_torch/csrc/elim.cu",
                 "tpu_sparse_lu/ops/pallas_elim.py:125"),
+    "elim_fused": ("tpu_sparse_lu_torch/csrc/elim_fused.cu",
+                   "tpu_sparse_lu/ops/pallas_elim.py:125"),
     "wave_apply_bf16": ("tpu_sparse_lu_torch/csrc/ldiv.cu",
                         "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
     "bidiag_ldiv": ("tpu_sparse_lu_torch/csrc/bidiag.cu",
@@ -211,10 +226,14 @@ KERNELS = {
                         "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
 }
 # R of the one-launch solve's checks, and its grid sizes (None: as many
-# blocks as the card holds at once)
+# blocks as the card holds at once); the one-launch elimination is held to
+# the per-level route at the same grids
 FUSED_RS = (1, 3, 16, 64)
 FUSED_GRIDS = (1, 7, None)
 GRAPH_REPLAYS = 30
+# CUDA-graph replays of refactor_numeric's pipeline, each on fresh values,
+# held bit for bit to its eager run
+REFACTOR_REPLAYS = 10
 # BASELINE config 1 (bench.py:225-241): the 1-D chain, single RHS
 CONFIG1 = dict(n=20000, chunk_size=128)
 CHAIN_NS = (7, 128, 257, 5000, 20000, 1_048_577)
@@ -320,6 +339,9 @@ FP32_FLOP_PER_S = 67e12
 # (bytes, FLOP) of each kernel's timed call, from this run's inputs: each
 # input read once, each output written once; filled by the timing phases
 WORK = {}
+# a latency bound beside the bytes and FLOP, where a chain of dependent
+# steps sets the time (ms, from this run's measurements)
+CHAIN_MS = {}
 # the one PyTorch call that computes a kernel's function, timed beside it
 # as a yardstick (never on the port's path), or why there is none
 LIBRARY = {
@@ -341,6 +363,9 @@ LIBRARY = {
                         "then scattered ones",
     "ldiv_fused": "none: the whole solve in one launch",
     "ldiv_fused_bf16": "none: the whole solve in one launch",
+    "elim_fused": "the per-level route with library products: per level "
+                  "one lu_tile launch, the products by torch.bmm and "
+                  "index_add_ (tile_mm_plain), in one CUDA graph",
 }
 
 
@@ -877,6 +902,58 @@ def _lu_tile_pairs(rng, tdt, cs):
         yield from zip(*outs)
 
 
+def _elim_fused_equal(store, sched, want, tag):
+    """The one launch on a copy of ``store`` at every grid of
+    ``FUSED_GRIDS``, each output bit for bit equal to ``want`` (the
+    per-level route's); returns the default grid's outputs."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.elimination import eliminate
+
+    for grid in FUSED_GRIDS:
+        got = eliminate(store.clone(), sched, grid=grid)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("store", "min_piv", "linv", "uinv"), got,
+                              want):
+            if not torch.equal(g, w):
+                bad = (g != w).sum().item()
+                raise AssertionError(
+                    f"{tag}: elim_fused at grid {grid} differs from the "
+                    f"per-level route in {what} ({bad} elements, max abs "
+                    f"{float((g.double() - w.double()).abs().max()):.3e})")
+    return got
+
+
+def _refactor_replays(F, A, rng) -> str:
+    """``refactor_numeric``'s device pipeline captured once in a CUDA
+    graph on a static value tensor, then ``REFACTOR_REPLAYS`` replays,
+    fresh seeded same-pattern values copied in before each, every output
+    bit for bit equal to an eager run on the same values."""
+    import torch
+
+    from tpu_sparse_lu_torch.refactor import refactor_pipeline
+
+    dev = F._refactor_dev
+
+    def values():
+        return torch.as_tensor(_same_pattern(rng, A).tocsc().data,
+                               dtype=F.dtype, device="cuda")
+
+    a = values()
+    graph, out = _capture(lambda: refactor_pipeline(a, dev))
+    for r in range(REFACTOR_REPLAYS):
+        fresh = values()
+        a.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = refactor_pipeline(fresh, dev)
+        for k, w in want.items():
+            if not torch.equal(out[k], w):
+                raise AssertionError(f"refactor_numeric replay {r}: {k} "
+                                     f"differs from the eager run")
+    return f"TF={dev.TF} ok"
+
+
 def phase_refactor_kernels_vs_plain():
     """Returns the max abs differences on the headline's real store
     (float32) and the worst relative differences."""
@@ -893,8 +970,8 @@ def phase_refactor_kernels_vs_plain():
 
     rng = np.random.default_rng(4)
     n_shapes = 0
-    worst = {"lu_tile": {"float32": 0.0, "float64": 0.0},
-             "tile_mm": {"float32": 0.0, "float64": 0.0}}
+    worst = {k: {"float32": 0.0, "float64": 0.0}
+             for k in ("lu_tile", "tile_mm", "elim_fused")}
 
     def note(kind, dt, got, ref, bound):
         r = _rel(got, ref)
@@ -967,8 +1044,8 @@ def phase_refactor_kernels_vs_plain():
 
     # the real stores of both deployments, float32 and float64
     err = {"span_gather": 0.0, "lu_tile": 0.0, "tile_mm": 0.0,
-           "assemble_tiles": 0.0, "assemble_closure": 0.0}
-    real = {}
+           "elim_fused": 0.0, "assemble_tiles": 0.0, "assemble_closure": 0.0}
+    real, replays = {}, {}
     for name in ("headline", "config2"):
         for dt in ("float32", "float64"):
             if name == "headline":
@@ -996,19 +1073,31 @@ def phase_refactor_kernels_vs_plain():
                     note("lu_tile", dt, got, ref, LU_TOL)
                 if inverses:
                     lu_out = outs
-            # the whole elimination
-            ek = eliminate(sp_.clone(), F._refactor_dev.elim)
-            ep = eliminate(sp_.clone(), F._refactor_dev.elim, plain=True)
-            note("tile_mm", dt, ek[0][:TF], ep[0][:TF], ELIM_TOL)
-            note("tile_mm", dt, ek[1], ep[1], ELIM_TOL)
-            for l in range(rp.NL):
-                c = int(rp.diag_cnt[l])
-                for i in (2, 3):
-                    note("tile_mm", dt, ek[i][l, :c], ep[i][l, :c], ELIM_TOL)
+            # the whole elimination: the per-level route against its plain
+            # version, the one launch bit for bit against the per-level
+            # route at every grid and within ELIM_TOL of its plain twin
+            sched = F._refactor_dev.elim
+            ek = eliminate(sp_.clone(), sched, route="levels")
+            ep = eliminate(sp_.clone(), sched, route="levels", plain=True)
+            ef = _elim_fused_equal(sp_, sched, ek, f"{name} {dt}")
+            efp = eliminate(sp_.clone(), sched, plain=True)
+            for kind, got, ref in (("tile_mm", ek, ep),
+                                   ("elim_fused", ef, efp)):
+                note(kind, dt, got[0][:TF], ref[0][:TF], ELIM_TOL)
+                note(kind, dt, got[1], ref[1], ELIM_TOL)
+                for l in range(rp.NL):
+                    c = int(rp.diag_cnt[l])
+                    for i in (2, 3):
+                        note(kind, dt, got[i][l, :c], ref[i][l, :c],
+                             ELIM_TOL)
             if name == "headline" and dt == "float32":
                 err["lu_tile"] = max(float((g - r).abs().max())
                                      for g, r in zip(*lu_out))
                 err["tile_mm"] = float((ek[0][:TF] - ep[0][:TF]).abs().max())
+                err["elim_fused"] = float(
+                    (ef[0][:TF] - efp[0][:TF]).abs().max())
+            if dt == "float32":
+                replays[name] = _refactor_replays(F, A, rng)
             real[name] = (rp.TF, rp.NL, int(rp.diag_ids.shape[1]),
                           sum(len(g[2]) for g in rp.schur_groups),
                           sum(len(g[2]) - len(g[0]) for g in rp.schur_groups))
@@ -1028,6 +1117,17 @@ def phase_refactor_kernels_vs_plain():
           f"headline {real['headline']}, config 2 {real['config2']}; "
           f"headline f32 max abs lu_tile {err['lu_tile']:.3e} elimination "
           f"{err['tile_mm']:.3e}")
+    print(f"phase 6 elim_fused: one launch bit for bit equal to the "
+          f"per-level route (lu_tile + 3 tile_mm a level) on both real "
+          f"stores, float32 and float64, at grids "
+          f"{[g or 'default' for g in FUSED_GRIDS]}; against its plain twin "
+          f"max rel diff f32 {worst['elim_fused']['float32']:.3e} f64 "
+          f"{worst['elim_fused']['float64']:.3e} (bounds "
+          f"{ELIM_TOL['float32']:g}/{ELIM_TOL['float64']:g}), headline f32 "
+          f"max abs {err['elim_fused']:.3e}; refactor_numeric's pipeline "
+          f"captured in a CUDA graph, {REFACTOR_REPLAYS} replays on fresh "
+          f"values each bit for bit equal to its eager run: " + ", ".join(
+              f"{k} {v}" for k, v in replays.items()))
     return err
 
 
@@ -1036,6 +1136,7 @@ def _reset_launches(*names):
     counts of ``names``."""
     from tpu_sparse_lu_torch.ops import assembly
     from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
+    from tpu_sparse_lu_torch.ops.elim_fused import elim_fused
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
         fused_ldiv, fused_ldiv_bf16, perm_gather, wave_apply, wave_apply_bf16,
@@ -1047,7 +1148,7 @@ def _reset_launches(*names):
            "span_gather": span_gather, "lu_tile": lu_tile,
            "tile_mm": tile_mm, "wave_apply_bf16": wave_apply_bf16,
            "bidiag_ldiv": bidiag_ldiv, "ldiv_fused": fused_ldiv,
-           "ldiv_fused_bf16": fused_ldiv_bf16,
+           "ldiv_fused_bf16": fused_ldiv_bf16, "elim_fused": elim_fused,
            "assemble_tiles": assembly.assemble_tiles,
            "assemble_closure": assembly.assemble_closure}
     for f in fns.values():
@@ -1061,8 +1162,9 @@ def phase_device_lifecycle():
 
     rng = np.random.default_rng(5)
     R = HEADLINE["R"]
-    read = _reset_launches("ldiv_fused", *ASSEMBLY, "lu_tile", "tile_mm",
-                           "span_gather", "perm_gather", "wave_apply")
+    read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused", "lu_tile",
+                           "tile_mm", "span_gather", "perm_gather",
+                           "wave_apply")
     t0 = time.perf_counter()
     A, F = _device_headline("float32")
     torch.cuda.synchronize()
@@ -1106,13 +1208,17 @@ def phase_device_lifecycle():
     d = {k: float(v) for k, v in F.refactor_diagnostics.items()}
     torch.cuda.synchronize()
     launches = read()
-    # four checked ldiv calls (two refined) and the refined step: 8 solves
+    # four checked ldiv calls (two refined) and the refined step: 8 solves;
+    # every refactorization (one assembly each) one elim_fused launch
     waves = {k: launches.pop(k)
-             for k in ("span_gather", "perm_gather", "wave_apply")}
+             for k in ("span_gather", "perm_gather", "wave_apply",
+                       "lu_tile", "tile_mm")}
     if (min(launches.values()) == 0 or launches["ldiv_fused"] != 8
+            or launches["elim_fused"] != launches["assemble_tiles"]
             or any(waves.values())):
         raise AssertionError(f"device lifecycle did not launch every "
                              f"kernel, or not one ldiv_fused per solve, or "
+                             f"not one elim_fused per refactorization, or "
                              f"a yardstick: {launches}, {waves}")
     # the yardstick assembly on the last values, bit for bit (it launches
     # span_gather once; no entry point does since the assembly kernels)
@@ -1126,8 +1232,19 @@ def phase_device_lifecycle():
     if not all(torch.equal(p, q) for p, q in zip(mine, yard)):
         raise AssertionError("the assembly kernels differ from the yardstick "
                              "on the lifecycle's values")
+    # the per-level elimination (lu_tile, tile_mm) on the last values'
+    # store, bit for bit (it launches both; no entry point does since the
+    # one-launch elimination)
+    from tpu_sparse_lu_torch.ops.elimination import eliminate
+
+    store = mine[0]
+    _elim_fused_equal(store, dev.elim,
+                      eliminate(store.clone(), dev.elim, route="levels"),
+                      "device lifecycle")
     torch.cuda.synchronize()
-    launches["span_gather"] = read()["span_gather"]
+    yard = read()
+    for k in ("span_gather", "lu_tile", "tile_mm"):
+        launches[k] = yard[k]
     _, F64 = _device_headline("float64")
     A3 = _same_pattern(rng, A)
     F64.refactor_numeric(A3)
@@ -1156,8 +1273,9 @@ def phase_config2_step():
     import torch
 
     rng = np.random.default_rng(6)
-    read = _reset_launches("ldiv_fused", *ASSEMBLY, "span_gather", "lu_tile",
-                           "tile_mm", "perm_gather", "wave_apply")
+    read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused",
+                           "span_gather", "lu_tile", "tile_mm", "perm_gather",
+                           "wave_apply")
     A, F = _config2_solver()
     step = F.make_refactor_solve_step()
     A_chk = A.copy()
@@ -1179,8 +1297,10 @@ def phase_config2_step():
                              f"(per column max {e:.3e})")
     torch.cuda.synchronize()
     launches = read()
-    if ((launches["ldiv_fused"], launches["span_gather"],
-         launches["perm_gather"], launches["wave_apply"]) != (1, 0, 0, 0)
+    if ((launches["ldiv_fused"], launches["elim_fused"],
+         launches["span_gather"], launches["lu_tile"], launches["tile_mm"],
+         launches["perm_gather"], launches["wave_apply"])
+            != (1, 1, 0, 0, 0, 0, 0)
             or any(launches[k] != 1 for k in ASSEMBLY)):
         raise AssertionError(f"config-2 step launched {launches}")
     rp = F._refactor_plan
@@ -1245,10 +1365,14 @@ def phase_refactor_timing(A2c, F2c, step, smi):
         ms[name] = _median_ms(
             lambda t: _elim_products(t, linv, uinv, dev.elim, fn),
             setup=store.clone, reps=30)
-    for name, plain in (("elimination", False), ("elimination_plain", True)):
-        ms[name] = _median_ms(lambda t: eliminate(t, dev.elim, plain=plain),
-                              setup=store.clone, reps=20 if plain else 30,
-                              warmup=2)
+    for name, kw, reps in (("elimination", {}, 30),
+                           ("elimination_plain", {"plain": True}, 10),
+                           ("elimination_levels", {"route": "levels"}, 30)):
+        ms[name] = _median_ms(lambda t: eliminate(t, dev.elim, **kw),
+                              setup=store.clone, reps=reps, warmup=2)
+    ms["elim_fused"] = ms["elimination"]
+    ms["elim_fused_plain"] = ms["elimination_plain"]
+    ms["config2_step_graph"] = _graph_ms(lambda: step(a2c, b2c), reps=20)
     print(f"phase 9 refactor timing on {smi}: median config-2 fused step "
           f"R={CONFIG2['R']} {ms['config2_step']:.4f} ms; refactor_numeric "
           f"pipeline headline {ms['refactor_headline']:.4f} ms kernels / "
@@ -1259,8 +1383,10 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"diagonal tiles with inverses {ms['lu_tile']:.4f} / "
           f"{ms['lu_tile_plain']:.4f} ms, the elimination's tile products "
           f"{ms['tile_mm']:.4f} / {ms['tile_mm_plain']:.4f} ms, whole "
-          f"elimination {ms['elimination']:.4f} / "
-          f"{ms['elimination_plain']:.4f} ms")
+          f"elimination (one elim_fused launch) {ms['elimination']:.4f} / "
+          f"{ms['elimination_plain']:.4f} ms plain twin, per-level route "
+          f"{ms['elimination_levels']:.4f} ms; config-2 fused step by "
+          f"CUDA-graph replay {ms['config2_step_graph']:.4f} ms")
     rows = sg[0].shape[0]
     WORK["span_gather"] = (_nbytes(a_pad, *sg) + rows * cs * a.element_size(),
                            0)
@@ -1308,6 +1434,18 @@ def phase_refactor_timing(A2c, F2c, step, smi):
     diag2 = F2c._refactor_dev.elim.levels[0].diag
     ms["lu_tile_config2_device"] = _lu_tile_ms(store2, diag2, True)
     ms["lu_tile_config2_device_lu"] = _lu_tile_ms(store2, diag2, False)
+    # the one launch's chain bound: a level's diagonal LU waits for the
+    # last level's, so NL one-tile LUs (with inverses) in a row at
+    # lu_tile's measured time for one tile
+    CHAIN_MS["elim_fused"] = dev.elim.NL * ms["lu_tile_config2_device"]
+    print(f"phase 9 elim_fused chain bound on {smi}: headline "
+          f"{dev.elim.NL} levels x {ms['lu_tile_config2_device']:.4f} ms "
+          f"(lu_tile on one tile with inverses) = "
+          f"{CHAIN_MS['elim_fused']:.4f} ms; config 2 "
+          f"{F2c._refactor_dev.elim.NL} levels = "
+          f"{F2c._refactor_dev.elim.NL * ms['lu_tile_config2_device']:.4f}"
+          f" ms; FLOP/byte bound {_bound('elim_fused')[0]:.4f} ms "
+          f"({_bound('elim_fused')[1]})")
     res = {"float32": _identity_residuals(store, lvl0.diag)}
     # the same in float64
     A64, F64 = _device_headline("float64")
@@ -1517,16 +1655,27 @@ def _refactor_device_times(deployments, ms, smi):
             WORK["tile_mm"] = ((len(read) + inv + len(wrote)) * tile,
                                2 * cs ** 3 * n_prod)
         shapes[name] = (len(ops), n_prod)
-        out[f"elimination_{name}_graph"] = _graph_ms(
-            lambda: eliminate(work, dev.elim), setup=lambda: work.copy_(store),
-            reps=20)
+        if name == "headline":
+            rp, sched = Fx._refactor_plan, dev.elim
+            WORK["elim_fused"] = (
+                (2 * rp.TF + 2 * sched.n_diag) * tile,
+                2 * cs ** 3 * n_prod + 4 / 3 * cs ** 3 * sched.n_diag)
+        # the one launch, the per-level route (lu_tile + tile_mm), and the
+        # per-level route with the library's products, in turns
+        for key, fn in (
+                ("graph", lambda: eliminate(work, dev.elim)),
+                ("levels_graph",
+                 lambda: eliminate(work, dev.elim, route="levels")),
+                ("levels_bmm_graph", lambda: _levels_bmm(work, dev.elim))):
+            out[f"elimination_{name}_{key}"] = _graph_ms(
+                fn, setup=lambda: work.copy_(store), reps=20)
         a = torch.as_tensor(Ax.data, dtype=torch.float32, device="cuda")
         out[f"refactor_{name}_graph"] = _graph_ms(
             lambda: refactor_pipeline(a, dev), reps=20)
     r = {n: out[f"tile_mm_{n}_device"] / out[f"tile_mm_{n}_library"]
          for n in shapes}
-    lu_sum = {n: out[f"elimination_{n}_graph"] - out[f"tile_mm_{n}_device"]
-              for n in shapes}
+    lu_sum = {n: out[f"elimination_{n}_levels_graph"]
+              - out[f"tile_mm_{n}_device"] for n in shapes}
     gflop = WORK["tile_mm"][1] / 1e9
     print(f"phase 9 tile products on {smi} (CUDA-graph replay; "
           f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -1542,18 +1691,58 @@ def _refactor_device_times(deployments, ms, smi):
           f"{out['tile_mm_config2_library']:.4f}, ratio {r['config2']:.3f}; "
           f"config-2 fused step / its bmm "
           f"{ms['config2_step'] / out['tile_mm_config2_library']:.2f}; "
-          f"whole elimination graph replay headline "
-          f"{out['elimination_headline_graph']:.4f} ms, config 2 "
-          f"{out['elimination_config2_graph']:.4f} ms, of which lu_tile "
-          f"(the elimination less its tile products: every lu_tile launch, "
-          f"two zero-fills and a min) "
+          f"per-level elimination graph replay headline "
+          f"{out['elimination_headline_levels_graph']:.4f} ms, config 2 "
+          f"{out['elimination_config2_levels_graph']:.4f} ms, of which "
+          f"lu_tile (the elimination less its tile products: every lu_tile "
+          f"launch, two zero-fills and a min) "
           f"{lu_sum['headline']:.4f} ms and {lu_sum['config2']:.4f} ms; "
           f"refactor_numeric pipeline graph replay headline "
           f"{out['refactor_headline_graph']:.4f} ms (eager "
           f"{ms['refactor_headline']:.4f}), config 2 "
           f"{out['refactor_config2_graph']:.4f} ms (eager "
           f"{ms['refactor_config2']:.4f})")
+    print(f"phase 9 elim_fused on {smi} (CUDA-graph replay): the one launch "
+          f"headline {out['elimination_headline_graph']:.4f} ms, config 2 "
+          f"{out['elimination_config2_graph']:.4f} ms; the per-level route "
+          f"(lu_tile + 3 tile_mm a level) "
+          f"{out['elimination_headline_levels_graph']:.4f} / "
+          f"{out['elimination_config2_levels_graph']:.4f} ms; the per-level "
+          f"route with bmm products "
+          f"{out['elimination_headline_levels_bmm_graph']:.4f} / "
+          f"{out['elimination_config2_levels_bmm_graph']:.4f} ms")
     return out
+
+
+def _levels_bmm(store, sched):
+    """The per-level route with the library's products (the yardstick of
+    ``elim_fused``, used nowhere in the port): per level one ``lu_tile``
+    launch, the products by ``tile_mm_plain`` (``torch.bmm`` and
+    ``index_add_``)."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.elimination import tile_mm_plain
+    from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
+
+    cs = sched.cs
+    linv = torch.zeros((sched.NL * sched.BL, cs, cs), dtype=store.dtype,
+                       device=store.device)
+    uinv = torch.zeros_like(linv)
+    piv = torch.full((max(sched.n_diag, 1),), float("inf"),
+                     dtype=store.dtype, device=store.device)
+    off = 0
+    for lvl in sched.levels:
+        n = lvl.diag.shape[0]
+        s = slice(lvl.slot0, lvl.slot0 + n)
+        lu_tile(store, lvl.diag, piv=piv[off:off + n], linv=linv[s],
+                uinv=uinv[s])
+        off += n
+        for g, a, b, sub in ((lvl.rows, store, uinv, False),
+                             (lvl.cols, linv, store, False),
+                             (lvl.schur, store, store, True)):
+            if g is not None:
+                tile_mm_plain(store, a, b, g, side="row", subtract=sub)
+    return store, piv.amin(), linv, uinv
 
 
 def _random_planes(rng, n, tdt):
@@ -2275,7 +2464,8 @@ def _persist_case(tag, A, F, build_s, R, tmp, rng, cpu_reload=False):
         F.save(path, values=values)
         out[kind, "save_s"] = time.perf_counter() - t0
         out[kind, "mb"] = _file_mb(path)
-        read = _reset_launches("ldiv_fused", *ASSEMBLY, "lu_tile", "tile_mm")
+        read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused",
+                               "lu_tile", "tile_mm")
         t0 = time.perf_counter()
         G = ParallelSparseLU.from_saved(A, path, device="cuda")
         torch.cuda.synchronize()
@@ -2286,9 +2476,12 @@ def _persist_case(tag, A, F, build_s, R, tmp, rng, cpu_reload=False):
             if any(ran.values()):
                 raise AssertionError(f"{tag} full reload launched {ran}")
         else:
-            if any(ran[k] == 0 for k in (*ASSEMBLY, "lu_tile", "tile_mm")):
+            if (any(ran[k] == 0 for k in (*ASSEMBLY, "elim_fused"))
+                    or ran["lu_tile"] or ran["tile_mm"]):
                 raise AssertionError(f"{tag} light reload did not run the "
-                                     f"refactorization kernels: {ran}")
+                                     f"refactorization kernels (one "
+                                     f"elim_fused launch, no per-level "
+                                     f"route): {ran}")
             F.refactor_numeric(A)
             ref = F.ldiv(b)
         x = G.ldiv(b)
@@ -2776,13 +2969,15 @@ def main() -> int:
     # by eager CUDA events (host included)
     graph = {"span_gather": "span_gather_device", "lu_tile": "lu_tile_device",
              "tile_mm": "tile_mm_headline_device",
+             "elim_fused": "elimination_headline_graph",
              "bidiag_ldiv": "bidiag_ldiv_device",
              **{k: k + "_device" for k in ASSEMBLY},
              "ldiv_fused": "ldiv_fused_device",
              "ldiv_fused_bf16": "ldiv_fused_bf16_device"}
     library = {"span_gather": "span_gather_library",
                "lu_tile": "lu_tile_library",
-               "tile_mm": "tile_mm_headline_library"}
+               "tile_mm": "tile_mm_headline_library",
+               "elim_fused": "elimination_headline_levels_bmm_graph"}
     kernels = []
     for k, (src, tpu) in KERNELS.items():
         bound_ms, bound_by = _bound(k)
@@ -2793,7 +2988,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": ms[library[k]] if k in library else None,
             "timing": "graph replay" if k in graph else "eager",
-            "eager_ms": ms[k], "library": LIBRARY[k]})
+            "eager_ms": ms[k], "library": LIBRARY[k],
+            **({"chain_bound_ms": CHAIN_MS[k]} if k in CHAIN_MS else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

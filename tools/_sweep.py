@@ -1,8 +1,8 @@
-"""Plumbing shared by ``tools/chain_sweep.py`` and
-``tools/assemble_sweep.py``: this checkout's ``chip_smoke.py`` loaded by
-path, the card's name, side libraries built from versions of one source
-(with ``ptxas -v``), and the runs of other checkouts, each in a process
-of its own.
+"""Plumbing shared by ``tools/chain_sweep.py``,
+``tools/assemble_sweep.py`` and ``tools/elim_sweep.py``: this checkout's
+``chip_smoke.py`` loaded by path, the card's name, side libraries built
+from versions of one source (with ``ptxas -v``), and the runs of other
+checkouts, each in a process of its own.
 """
 
 import hashlib
@@ -44,9 +44,11 @@ def parse_pairs(items, what="NAME=PATH"):
     return out
 
 
-def build_side(versions):
+def build_side(versions, flags=()):
     """Compile each ``(name, source text)`` alone into a side library, all
-    ``nvcc -Xptxas -v`` started together; returns {name: (so, ptxas)}."""
+    ``nvcc -Xptxas -v`` started together (with ``flags`` added, e.g. the
+    ``-I`` of the headers a source includes); returns {name: (so,
+    ptxas)}."""
     from tpu_sparse_lu_torch.ops import _build as B
 
     SIDE.mkdir(parents=True, exist_ok=True)
@@ -55,8 +57,8 @@ def build_side(versions):
         h = hashlib.sha256(text.encode()).hexdigest()[:12]
         src, so = SIDE / f"{name}_{h}.cu", SIDE / f"{name}_{h}.so"
         src.write_text(text)
-        cmd = [nvcc, *B._FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so),
-               str(src)]
+        cmd = [nvcc, *B._FLAGS, *flags, "-Xptxas", "-v", "-shared", "-o",
+               str(so), str(src)]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True), cmd)

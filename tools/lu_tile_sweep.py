@@ -5,7 +5,9 @@
 
 Needs one CUDA card and ``nvcc``. Each version is a copy of
 ``csrc/lu_tile.cu`` (the shipped one as ``shipped``, and any other source
-given as ``NAME=PATH``, e.g. an older commit's from ``git show``). Every
+given as ``NAME=PATH``, e.g. an older commit's from ``git show``), with
+the ``csrc/*.cuh`` headers it includes pasted in (the kernel's body is
+``csrc/lu_tile.cuh``). Every
 version is built alone into a side library under
 ``tpu_sparse_lu_torch/_build/sweep/`` (one ``nvcc -Xptxas -v`` each, all
 started together); the script prints the registers, stack and spills of
@@ -56,15 +58,27 @@ def _phase_labels(text):
             else tuple(f"phase {p}" for p in range(n)))
 
 
+_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"$', re.M)
+
+
+def _inlined(text):
+    """A source with the ``csrc/*.cuh`` headers it includes pasted in, so
+    that a copy builds alone (the shipped kernel's body is
+    ``csrc/lu_tile.cuh``)."""
+    return _INCLUDE.sub(
+        lambda m: (SHIPPED.parent / m.group(1)).read_text()
+        .replace("#pragma once\n", ""), text)
+
+
 def _versions(args):
     """[(name, source text, extra nvcc flags)], the shipped source
     first."""
-    srcs = [("shipped", SHIPPED.read_text(), [])]
+    srcs = [("shipped", _inlined(SHIPPED.read_text()), [])]
     for a in args.sources:
         name, _, path = a.partition("=")
         if not path:
             raise SystemExit(f"expected NAME=PATH.cu, got {a!r}")
-        srcs.append((name, Path(path).read_text(), []))
+        srcs.append((name, _inlined(Path(path).read_text()), []))
     if args.clocks:
         srcs += [(f"{name}_clocks", text, ["-DLU_TILE_CLOCKS"])
                  for name, text, _ in srcs]

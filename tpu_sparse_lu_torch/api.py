@@ -29,8 +29,8 @@ kernel of ``ops/fused_ldiv.py`` (``fused_ldiv``); at ``"trsm"`` and
 ``solve.blocked_tri_solve`` (the off-diagonal waves on ``wave_apply``) and
 ``perm_gather``; for bidiagonal factors (1-D chains) in any mode it is
 the one launch of ``ops/bidiag_ldiv.py``. A device refactorization runs
-the kernels of ``ops/assembly.py``, ``ops/lu_tile.py`` and
-``ops/elimination.py``.
+the two kernels of ``ops/assembly.py`` and the one launch of
+``ops/elim_fused.py`` (the whole elimination).
 """
 
 from __future__ import annotations

@@ -1,14 +1,15 @@
 // Hopper tile products of the blocked elimination: the panel and Schur
-// updates of the device refactorization.
+// updates of the device refactorization, as the per-level yardstick.
 //
-// Replaces the panel and Schur part of the TPU kernel
-// tpu_sparse_lu/ops/pallas_elim.py `_kernel` (entry `fused_elimination`),
-// which keeps the whole merged tile store in VMEM across a sequential
-// grid of levels and runs every product on the matrix unit. The store
-// (27 MB in float32 at the 2D Poisson 100x100 nd headline) does not fit
-// in a block's shared memory, so on the H100 each level is a few launches
-// (ops/elimination.py): lu_tile on the level's diagonal tiles (with both
-// inverses), then this kernel three times:
+// The TPU kernel tpu_sparse_lu/ops/pallas_elim.py `_kernel` (entry
+// `fused_elimination`) keeps the whole merged tile store in VMEM across a
+// sequential grid of levels and runs every product on the matrix unit.
+// Its port is csrc/elim_fused.cu: the whole elimination in one persistent
+// launch, whose panel and Schur tasks run this file's product body
+// (tmm::product, csrc/tile_mm.cuh) on sub-tiles. This kernel launches that
+// body per level, three times after lu_tile on the level's diagonal tiles
+// (ops/elimination.py, route="levels"), which no entry point takes: it is
+// the yardstick the one launch is held to bit for bit and timed against.
 //
 //   row panels   A_ik <- A_ik . Uinv_kk        (in place on a, overwrite)
 //   col panels   A_kj <- Linv_kk . A_kj        (in place on b, overwrite)
@@ -59,145 +60,20 @@
 // a column panel owns whole columns (BM >= cs); a launch whose
 // destinations are no operand of it (Schur) may split both ways.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_mm.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kMaxCs = 128;
-constexpr int kStages = 3;     // k-slices in flight
+using tmm::kMaxCs;
+using tmm::kThreads;
 
 // side codes of the C interface: which operand a destination may be
 enum { kOwnRows = 0, kOwnCols = 1, kNoAlias = 2 };
 
-// the a slice keeps row m's four 16-byte chunks in the order c ^ swz(m):
-// rows m and m + 1, 2 or 4 (the two a warp reads at once) use different
-// banks
-__device__ __forceinline__ int swz(int m) { return (m >> 1) & 3; }
-
-// N contiguous elements from shared memory, 16 (or 8) bytes at a time
-template <int N>
-__device__ __forceinline__ void load_n(float* d, const float* s) {
-  if constexpr (N >= 4) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(s)[q];
-      d[4 * q] = v.x;
-      d[4 * q + 1] = v.y;
-      d[4 * q + 2] = v.z;
-      d[4 * q + 3] = v.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(s);
-    d[0] = v.x;
-    d[1] = v.y;
-  } else {
-    d[0] = s[0];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_n(double* d, const double* s) {
-  if constexpr (N >= 2) {
-#pragma unroll
-    for (int q = 0; q < N / 2; ++q) {
-      const double2 v = reinterpret_cast<const double2*>(s)[q];
-      d[2 * q] = v.x;
-      d[2 * q + 1] = v.y;
-    }
-  } else {
-    d[0] = s[0];
-  }
-}
-
-// Issue the copies of k-slice `kk` of one entry: rows [m0, m0 + BM) of
-// the a tile and columns [n0, n0 + BN) of the b tile. Out-of-tile
-// elements are stored as zeros, so they add nothing.
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void stage_slice(T* sA, T* sB, const T* at,
-                                            const T* bt, int cs, int m0,
-                                            int n0, int kk, bool vec) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int BK = 4 * V;          // k per slice: four chunks
-  if (vec) {  // cs % V == 0 and 16-byte aligned tiles: whole chunks
-    for (int q = threadIdx.x; q < BM * 4; q += kThreads) {
-      const int r = q >> 2, c = q & 3;
-      T* d = sA + r * BK + ((c ^ swz(r)) * V);
-      const int gr = m0 + r, gk = kk + c * V;
-      if (gr < cs && gk < cs)
-        __pipeline_memcpy_async(d, at + (int64_t)gr * cs + gk, 16);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
-    constexpr int CPR = BN / V;  // chunks per b row
-    for (int q = threadIdx.x; q < BK * CPR; q += kThreads) {
-      const int r = q / CPR, c = q - r * CPR;
-      T* d = sB + r * BN + c * V;
-      const int gk = kk + r, gc = n0 + c * V;
-      if (gk < cs && gc < cs)
-        __pipeline_memcpy_async(d, bt + (int64_t)gk * cs + gc, 16);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    }
-  } else {  // any cs: one element per copy
-    for (int q = threadIdx.x; q < BM * BK; q += kThreads) {
-      const int r = q / BK, k = q - r * BK;
-      T* d = sA + r * BK + (((k / V) ^ swz(r)) * V) + k % V;
-      const int gr = m0 + r, gk = kk + k;
-      if (gr < cs && gk < cs)
-        __pipeline_memcpy_async(d, at + (int64_t)gr * cs + gk, sizeof(T));
-      else
-        *d = T(0);
-    }
-    for (int q = threadIdx.x; q < BK * BN; q += kThreads) {
-      const int r = q / BN, c = q - r * BN;
-      const int gk = kk + r, gc = n0 + c;
-      if (gk < cs && gc < cs)
-        __pipeline_memcpy_async(sB + q, bt + (int64_t)gk * cs + gc,
-                                sizeof(T));
-      else
-        sB[q] = T(0);
-    }
-  }
-}
-
-// acc += the product of one k-slice. Thread (ty, tx) owns rows
-// (i / VM) * 16 VM + ty VM + i % VM and columns (j / VN) * 16 VN + tx VN
-// + j % VN of the sub-tile, so each of its loads is VM or VN contiguous
-// elements and a warp's loads are contiguous.
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void mma_slice(const T* sA, const T* sB,
-                                          T (&acc)[BM / 16][BN / 16], int ty,
-                                          int tx) {
-  constexpr int V = 16 / sizeof(T), BK = 4 * V;
-  constexpr int TM = BM / 16, TN = BN / 16;
-  constexpr int VM = TM < 4 ? TM : 4, VN = TN < 4 ? TN : 4;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    T af[TM][V];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = (i / VM) * 16 * VM + ty * VM + i % VM;
-      load_n<V>(af[i], sA + m * BK + ((kc ^ swz(m)) * V));
-    }
-#pragma unroll
-    for (int kv = 0; kv < V; ++kv) {
-      const T* brow = sB + (kc * V + kv) * BN + tx * VN;
-      T bf[TN];
-#pragma unroll
-      for (int c = 0; c < TN / VN; ++c)
-        load_n<VN>(bf + c * VN, brow + c * 16 * VN);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = fma(af[i][kv], bf[j], acc[i][j]);
-    }
-  }
-}
-
+// block b: sub-tile b % per of group b / per
 template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
 tile_mm_kernel(T* __restrict__ out, const T* a, const T* b,
@@ -206,68 +82,15 @@ tile_mm_kernel(T* __restrict__ out, const T* a, const T* b,
                const int32_t* __restrict__ a_idx,
                const int32_t* __restrict__ b_idx, int cs, int subtract,
                int vec) {
-  constexpr int V = 16 / sizeof(T), BK = 4 * V;
-  constexpr int TM = BM / 16, TN = BN / 16;
-  constexpr int VM = TM < 4 ? TM : 4, VN = TN < 4 ? TN : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);  // [kStages][BM][BK]
-  T* sB = sA + kStages * BM * BK;          // [kStages][BK][BN]
-
   const int tiles_n = (cs + BN - 1) / BN;
   const int per = ((cs + BM - 1) / BM) * tiles_n;
   const int d = blockIdx.x / per;
   const int r = blockIdx.x - d * per;
-  const int m0 = (r / tiles_n) * BM;
-  const int n0 = (r - (r / tiles_n) * tiles_n) * BN;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t te = (int64_t)cs * cs;
-  const int e0 = ptr[d];
-  const int nk = (cs + BK - 1) / BK;
-  const int total = (ptr[d + 1] - e0) * nk;  // slices over all entries
-
-  T acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-
-  // slice s of the group: entry e0 + s / nk, k from (s % nk) * BK
-  auto issue = [&](int s) {
-    if (s < total) {
-      const int e = e0 + s / nk;
-      const int st = s % kStages;
-      stage_slice<T, BM, BN>(sA + st * BM * BK, sB + st * BK * BN,
-                             a + (int64_t)a_idx[e] * te,
-                             b + (int64_t)b_idx[e] * te, cs, m0, n0,
-                             (s % nk) * BK, vec != 0);
-    }
-    __pipeline_commit();  // an empty group past the end keeps the count
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int s = 0; s < total; ++s) {
-    __pipeline_wait_prior(kStages - 2);  // slice s has landed
-    // every thread's copies of slice s are visible, and every thread is
-    // done with slice s - 1, whose buffer the next issue refills
-    __syncthreads();
-    issue(s + kStages - 1);
-    const int st = s % kStages;
-    mma_slice<T, BM, BN>(sA + st * BM * BK, sB + st * BK * BN, acc, ty, tx);
-  }
-
-  T* ot = out + (int64_t)dst[d] * te;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = m0 + (i / VM) * 16 * VM + ty * VM + i % VM;
-    if (gr >= cs) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = n0 + (j / VN) * 16 * VN + tx * VN + j % VN;
-      if (gc >= cs) continue;
-      T* p = ot + (int64_t)gr * cs + gc;
-      *p = subtract ? *p - acc[i][j] : acc[i][j];
-    }
-  }
+  tmm::product<T, BM, BN, false>(
+      out + (int64_t)dst[d] * cs * cs, a, b, a_idx, b_idx, ptr[d],
+      ptr[d + 1], cs, (r / tiles_n) * BM, (r - (r / tiles_n) * tiles_n) * BN,
+      subtract != 0, vec != 0, smem_raw, threadIdx.x, tmm::BlockSync{});
 }
 
 template <typename T, int BM, int BN>
@@ -276,7 +99,7 @@ int launch_shape(T* out, const T* a, const T* b, const int32_t* dst,
                  const int32_t* b_idx, int n_groups, int cs, int subtract,
                  int vec, cudaStream_t stream) {
   const int per = ((cs + BM - 1) / BM) * ((cs + BN - 1) / BN);
-  const size_t smem = (size_t)kStages * (BM + BN) * 64;  // <= 36 KB
+  const size_t smem = tmm::smem_bytes(BM, BN);  // <= 36 KB
   tile_mm_kernel<T, BM, BN><<<n_groups * per, kThreads, smem, stream>>>(
       out, a, b, dst, ptr, a_idx, b_idx, cs, subtract, vec);
   return (int)cudaGetLastError();

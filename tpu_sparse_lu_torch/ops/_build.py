@@ -3,8 +3,9 @@
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``. The build runs
 at first use, into ``tpu_sparse_lu_torch/_build/``, under a name keyed by
-a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built or imported when this
+a hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is. Nothing is built or imported when this
 module is imported: CPU-only installs never call :func:`load`.
 """
 
@@ -54,6 +55,11 @@ def _sources():
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {_SRC_DIR}")
     return srcs
+
+
+def _headers():
+    """The device bodies several sources include (``*.cuh``)."""
+    return sorted(_SRC_DIR.glob("*.cuh"))
 
 
 def _run(cmd) -> subprocess.Popen:
@@ -109,6 +115,22 @@ def bind_fused_ldiv(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_elim_fused(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/elim_fused.cu``'s entries (also bound
+    on the side libraries of ``tools/elim_sweep.py``)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"elim_fused_{dt}")
+        f.argtypes = [P] * 13 + [I, I, I, P]
+        f.restype = I
+        f = getattr(lib, f"elim_fused_{dt}_capacity")
+        f.argtypes = [I]
+        f.restype = I
+    lib.elim_fused_clock_words.argtypes = []
+    lib.elim_fused_clock_words.restype = I
+    return lib
+
+
 def bind_bidiag(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The argument types of ``csrc/bidiag.cu``'s entries (also bound on
     the side libraries of ``tools/chain_sweep.py``)."""
@@ -158,6 +180,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ldiv_wave_apply_bf16.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
     lib.ldiv_wave_apply_bf16.restype = I
     bind_fused_ldiv(lib)
+    bind_elim_fused(lib)
     bind_bidiag(lib)
     bind_assembly(lib)
     lib.ldiv_error_string.argtypes = [I]
@@ -180,7 +203,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             srcs = _sources()
             h = hashlib.sha256(" ".join(_FLAGS).encode())
-            for s in srcs:
+            for s in srcs + _headers():
                 h.update(s.name.encode())
                 h.update(s.read_bytes())
             so = _BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"

@@ -1,24 +1,31 @@
 """The blocked elimination (B3): counterpart of
 ``tpu_sparse_lu/ops/pallas_elim.py`` and ``refactor._blocked_elimination``.
 
-Right-looking blocked LU without pivoting over the merged tile store,
-one dependency level at a time. The TPU kernel keeps the whole store in
-VMEM across a sequential grid; on the H100 the store lives in device
-memory and each level is up to four launches:
+Right-looking blocked LU without pivoting over the merged tile store.
+Each dependency level does:
 
-1. :func:`~tpu_sparse_lu_torch.ops.lu_tile.lu_tile` on the level's
-   diagonal tiles, which also writes their ``L⁻¹`` and ``U⁻¹`` into the
-   per-level inverse stacks;
-2. :func:`tile_mm` row panels ``A_ik ← A_ik · U_kk⁻¹``;
-3. :func:`tile_mm` column panels ``A_kj ← L_kk⁻¹ · A_kj``;
-4. :func:`tile_mm` Schur updates ``A_ij ← A_ij − Σ L_ik · U_kj``, one group
-   per destination tile (``RefactorPlan.schur_groups``), so no two blocks
+1. the LU of the level's diagonal tiles, which also writes their ``L⁻¹``
+   and ``U⁻¹`` into the per-level inverse stacks;
+2. row panels ``A_ik ← A_ik · U_kk⁻¹``;
+3. column panels ``A_kj ← L_kk⁻¹ · A_kj``;
+4. Schur updates ``A_ij ← A_ij − Σ L_ik · U_kj``, one group per
+   destination tile (``RefactorPlan.schur_groups``), so no two blocks
    write one tile.
 
+The TPU kernel runs all levels as one program with the store resident in
+VMEM. So does the port: :func:`eliminate` is one launch of
+``csrc/elim_fused.cu`` (``ops/elim_fused.py``) over a task list made
+once per plan (:class:`ElimSchedule` ``.tasks``), the store resident in
+the card's L2 where it fits. The per-level route — per level one
+:func:`~tpu_sparse_lu_torch.ops.lu_tile.lu_tile` launch and three
+:func:`tile_mm` launches (``csrc/elim.cu``) — is the yardstick
+(``eliminate(..., route="levels")``) that the one launch equals bit for
+bit; no entry point takes it.
+
 The padded slots of the JAX schedules are skipped, so the dummy tile is
-never read or written. :func:`tile_mm` launches ``csrc/elim.cu`` on a CUDA
-tensor and runs :func:`tile_mm_plain` (``bmm`` and ``index_add_``) on a
-CPU tensor; ``tile_mm.LAUNCHES`` counts kernel launches.
+never read or written. :func:`tile_mm` runs :func:`tile_mm_plain`
+(``bmm`` and ``index_add_``) on a CPU tensor; ``tile_mm.LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ class TileGroups:
     b_tiles: int
     dst_in_a: bool
     dst_in_b: bool
+    host: tuple = ()  # (dst, ptr, a_idx, b_idx) as NumPy int64
 
 
 def make_groups(dst, groups, device) -> TileGroups:
@@ -98,16 +106,18 @@ def make_groups(dst, groups, device) -> TileGroups:
         b_tiles=int(b.max(initial=-1)) + 1,
         dst_in_a=bool(np.isin(dst, a).any()),
         dst_in_b=bool(np.isin(dst, b).any()),
+        host=(dst, ptr, a, b),
     )
 
 
 @dataclasses.dataclass
 class ElimLevel:
-    """One elimination level: its diagonal tiles (``diag``, int32, the
-    tiles' slots in the inverse stacks start at ``slot0``) and its three
-    products (``None`` when empty)."""
+    """One elimination level: its diagonal tiles (``diag``, int32, on the
+    host as ``diag_host``; the tiles' slots in the inverse stacks start at
+    ``slot0``) and its three products (``None`` when empty)."""
 
     diag: torch.Tensor
+    diag_host: np.ndarray
     slot0: int
     rows: Optional[TileGroups]
     cols: Optional[TileGroups]
@@ -117,7 +127,9 @@ class ElimLevel:
 @dataclasses.dataclass
 class ElimSchedule:
     """Device schedule of the whole elimination; ``n_diag`` is the number
-    of real diagonal tiles (the chunk count K)."""
+    of real diagonal tiles (the chunk count K). ``levels`` are the
+    per-level launches (the yardstick route), ``tasks`` the one launch's
+    task list (``elim_fused.ElimTasks``), made from them."""
 
     cs: int
     NL: int
@@ -125,11 +137,14 @@ class ElimSchedule:
     n_diag: int
     n_tiles: int  # the store's tile count, TF + 2
     levels: List[ElimLevel]
+    tasks: object = None
 
 
 def build_elim_schedule(rp, device) -> ElimSchedule:
     """The per-level launches of a ``refactor.RefactorPlan``, padded slots
-    dropped, uploaded once."""
+    dropped, and the one launch's task list, uploaded once."""
+    from .elim_fused import build_elim_tasks
+
     TF, BL = rp.TF, rp.diag_ids.shape[1]
     levels = []
     for l in range(rp.NL):
@@ -153,13 +168,15 @@ def build_elim_schedule(rp, device) -> ElimSchedule:
             schur = make_groups(
                 dst, [list(zip(lt[ptr[d]:ptr[d + 1]], ut[ptr[d]:ptr[d + 1]]))
                       for d in range(len(dst))], device)
+        diag = rp.diag_ids[l, :cnt].astype(np.int32)
         levels.append(ElimLevel(
-            diag=torch.as_tensor(rp.diag_ids[l, :cnt].astype(np.int32),
-                                 device=device),
+            diag=torch.as_tensor(diag, device=device), diag_host=diag,
             slot0=slot0, rows=rows, cols=cols, schur=schur))
-    return ElimSchedule(cs=rp.cs, NL=rp.NL, BL=BL,
-                        n_diag=int(rp.diag_cnt.sum()), n_tiles=TF + 2,
-                        levels=levels)
+    sched = ElimSchedule(cs=rp.cs, NL=rp.NL, BL=BL,
+                         n_diag=int(rp.diag_cnt.sum()), n_tiles=TF + 2,
+                         levels=levels)
+    sched.tasks = build_elim_tasks(sched, device)
+    return sched
 
 
 # ---------------------------------------------------------------------------
@@ -273,19 +290,37 @@ tile_mm.LAUNCHES = 0
 
 
 def eliminate(store: torch.Tensor, sched: ElimSchedule, *,
-              plain: bool = False):
+              plain: bool = False, route: str = "fused",
+              grid: Optional[int] = None):
     """Blocked LU of the merged store ``(TF+2, cs, cs)``, in place.
 
     Returns ``(store, min_piv, linv, uinv)``: ``min_piv`` the smallest
     |pivot| over the real diagonal tiles (a 0-d tensor, not synced), and
     the per-level inverse stacks ``(NL, BL, cs, cs)`` whose padded slots
-    are zero. ``plain=True`` runs the plain PyTorch version of every
-    kernel on any device; on a CPU tensor the wrappers do so anyway.
+    are zero.
+
+    ``route="fused"`` (every entry point's): on a CUDA tensor one launch
+    of ``elim_fused`` over ``sched.tasks`` (``grid`` blocks, default as
+    many as the card holds at once); ``plain=True`` or a CPU tensor runs
+    its plain twin, :func:`~tpu_sparse_lu_torch.ops.elim_fused.
+    elim_fused_plain`. ``route="levels"`` is the yardstick the one launch
+    equals bit for bit: per level :func:`lu_tile` on the diagonal tiles
+    and :func:`tile_mm` for the row panels, the column panels and the
+    Schur updates (their plain versions with ``plain=True`` or on a CPU
+    tensor).
     """
+    from .elim_fused import elim_fused, elim_fused_plain
+
     cs, NL, BL = sched.cs, sched.NL, sched.BL
     require(store.shape == (sched.n_tiles, cs, cs),
             f"store {tuple(store.shape)} does not match the schedule "
             f"({sched.n_tiles}, {cs}, {cs})")
+    require(route in ("fused", "levels"),
+            f"route must be 'fused' or 'levels', got {route!r}")
+    if route == "fused":
+        if plain:
+            return elim_fused_plain(store, sched.tasks)
+        return elim_fused(store, sched.tasks, grid=grid)
     lu = lu_tile_plain if plain else lu_tile
     mm = tile_mm_plain if plain else tile_mm
     linv = torch.zeros((NL * BL, cs, cs), dtype=store.dtype,

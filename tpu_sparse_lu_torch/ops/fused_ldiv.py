@@ -49,6 +49,7 @@ from ._launch import device_kind as _device_kind
 from ._launch import lib as _lib
 from ._launch import require as _require
 from ._launch import stream as _stream
+from ._tasks import hazard_deps
 
 __all__ = [
     "LdivSchedule",
@@ -406,27 +407,6 @@ class LdivSchedule:
         return self._state[key]
 
 
-def _hazard_deps(access, n_blocks: int):
-    """Per task, the earlier tasks it must wait for, from each task's
-    ``(reads, writes)`` carrier blocks in order: the last writer of every
-    block it reads or writes (RAW, WAW) and every reader of a block it
-    writes since that block's last write (WAR)."""
-    last = [-1] * n_blocks
-    readers = [[] for _ in range(n_blocks)]
-    out = []
-    for t, (reads, writes) in enumerate(access):
-        need = {last[c] for c in list(reads) + list(writes) if last[c] >= 0}
-        for c in writes:
-            need.update(readers[c])
-        out.append(sorted(need))
-        for c in reads:
-            readers[c].append(t)
-        for c in writes:
-            last[c] = t
-            readers[c] = []
-    return out
-
-
 def build_ldiv_schedule(lplan: TriPlan, uplan: TriPlan, pidx, qidx, n: int,
                         cs: int, device) -> LdivSchedule:
     """The task list of one solve (:class:`LdivSchedule`) from the two
@@ -460,7 +440,7 @@ def build_ldiv_schedule(lplan: TriPlan, uplan: TriPlan, pidx, qidx, n: int,
         task.append((PERM_OUT, m, 0, 0))
         rows = qidx[m * cs:(m + 1) * cs]
         access.append((np.unique(rows // cs).tolist(), ()))
-    deps = _hazard_deps(access, K + 1)
+    deps = hazard_deps(access, K + 1)
     for t, d in enumerate(deps):
         # the ticket order is the wave order: every dependency comes first
         assert all(x < t for x in d), (t, d)

@@ -14,10 +14,10 @@ whole numeric phase runs on the solver's device:
   closure (:func:`closure_solve_plans`), so the eliminated tiles feed the
   solve directly.
 * Device, every refactorization (:func:`refactor_pipeline`): assemble the
-  store with the span-gather kernel (B4), eliminate level by level with
-  the tile LU (B2) and tile-product (B3) kernels, then extract the solve
-  banks — reusing the diagonal inverses the elimination computed — with
-  no host synchronisation.
+  store with the assembly kernels (B4), eliminate in one launch (B3,
+  ``ops/elim_fused.py``: the tile LU of B2 and the tile products as its
+  tasks), then extract the solve banks — reusing the diagonal inverses
+  the elimination computed — with no host synchronisation.
 
 No numerical pivoting happens here (the point of the static-pivot
 design). ``refactor_same_pattern(check=True)`` detects value changes that
