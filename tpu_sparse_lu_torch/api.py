@@ -71,6 +71,7 @@ from .symbolic import (
     factorize_host,
     plan_triangular,
 )
+from .trace import span
 from .utils.config import SolverConfig, default_chunk_size, resolve_tri_mode
 
 __all__ = ["ParallelSparseLU", "cleanup_ParallelSparseLU"]
@@ -192,11 +193,12 @@ class ParallelSparseLU:
         if self.config.ordering == "nd":
             from .ordering import staged_extension
 
-            if self._nd_cutoff == "auto":
-                self._nd_cutoff = self._autotune_nd_cutoff(A, cs)
-            A_ext, ext_src, ext_pos, data_src = staged_extension(
-                A, cs, cutoff=self._nd_cutoff
-            )
+            with span("lu.setup.order"):
+                if self._nd_cutoff == "auto":
+                    self._nd_cutoff = self._autotune_nd_cutoff(A, cs)
+                A_ext, ext_src, ext_pos, data_src = staged_extension(
+                    A, cs, cutoff=self._nd_cutoff
+                )
             self._ext = {"src": ext_src, "pos": ext_pos, "data_src": data_src}
             A_factor = A_ext
         # first-factorization backend: "device" runs no numeric host
@@ -217,11 +219,13 @@ class ParallelSparseLU:
                 "alone before any numeric factorization exists"
             )
         self.config = dataclasses.replace(self.config, factorize=fac)
-        if fac == "device":
-            self._factors = _pattern_factors(A_factor)
-        else:
-            self._factors = self._factorize(A_factor)
-        self.plan = build_symbolic_plan(self._factors, cs)
+        with span("lu.setup.factorize"):
+            if fac == "device":
+                self._factors = _pattern_factors(A_factor)
+            else:
+                self._factors = self._factorize(A_factor)
+        with span("lu.setup.plan"):
+            self.plan = build_symbolic_plan(self._factors, cs)
         self._a_factor_pattern = (A_factor.indptr.copy(),
                                   A_factor.indices.copy())
         self._set_matrix(A)
@@ -581,52 +585,53 @@ class ParallelSparseLU:
         has one layout in every mode: the inverses are made in
         ``"trsm"`` too (``lsolve``/``rsolve`` and the other modes share
         the waves)."""
-        plan, dev = self.plan, self.device
-        mode = self.config.tri_mode
-        # numeric-state generation: a make_f64_ldiv callable records it and
-        # refuses to run once it moved
-        self._generation = getattr(self, "_generation", 0) + 1
-        # only the one-launch solve reads a bfloat16 stream
-        bf16 = self.config.stream_dtype == "bfloat16" and mode == "inv"
+        with span("lu.setup.device"):
+            plan, dev = self.plan, self.device
+            mode = self.config.tri_mode
+            # numeric-state generation: a make_f64_ldiv callable records it and
+            # refuses to run once it moved
+            self._generation = getattr(self, "_generation", 0) + 1
+            # only the one-launch solve reads a bfloat16 stream
+            bf16 = self.config.stream_dtype == "bfloat16" and mode == "inv"
 
-        def tri(tplan, M):
-            nz = torch.as_tensor(np.asarray(M.data), dtype=self.dtype,
-                                 device=dev)
-            return prepare_tri_kernel(tplan, *pack_factor(tplan, nz),
-                                      bf16_stream=bf16)
-
-        self.ldata: TriKernelData = tri(plan.lplan, self._factors.L)
-        self.udata: TriKernelData = tri(plan.uplan, self._factors.U)
-        # ldiv permutations (src:324-339), composed with the nd embedding:
-        #   wrk[i] = (Rs ⊙ b_ext)[p[i]],  b_ext[e] = b[ext_src[e]]
-        #   x[j]   = wrk[qinv[ext_pos[j]]]
-        if self._ext is None:
-            pvec, qvec, rs_in = plan.p, plan.qinv, plan.Rs
-        else:
-            src, pos = self._ext["src"], self._ext["pos"]
-            pvec = np.where(plan.p < src.shape[0], src[plan.p], -1)
-            qvec = plan.qinv[pos]
-            rs_in = plan.Rs[pos]  # per ORIGINAL row
-        K, cs = plan.lplan.K, plan.cs
-        pidx = np.full((K + 1) * cs, -1, dtype=np.int32)
-        pidx[: plan.n] = pvec
-        self._pidx = torch.as_tensor(pidx, device=dev)
-        self._qidx = torch.as_tensor(np.asarray(qvec, dtype=np.int32),
+            def tri(tplan, M):
+                nz = torch.as_tensor(np.asarray(M.data), dtype=self.dtype,
                                      device=dev)
-        # the whole solve as one task list (ops/fused_ldiv.py); a device
-        # refactorization changes only the banks and keeps it
-        self._ldiv_sched = None
-        if mode == "inv":
-            self._ldiv_sched = build_ldiv_schedule(
-                plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
-        # Rs in input row order: the perm-in scales before it permutes
-        self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
-                                   device=dev)
-        # the nd embedding's position of each input row, for the Rs of a
-        # device refactorization
-        self._ext_pos_dev = None if self._ext is None else torch.as_tensor(
-            self._ext["pos"], dtype=torch.int64, device=dev)
-        self._prepare_scan_path()
+                return prepare_tri_kernel(tplan, *pack_factor(tplan, nz),
+                                          bf16_stream=bf16)
+
+            self.ldata: TriKernelData = tri(plan.lplan, self._factors.L)
+            self.udata: TriKernelData = tri(plan.uplan, self._factors.U)
+            # ldiv permutations (src:324-339), composed with the nd embedding:
+            #   wrk[i] = (Rs ⊙ b_ext)[p[i]],  b_ext[e] = b[ext_src[e]]
+            #   x[j]   = wrk[qinv[ext_pos[j]]]
+            if self._ext is None:
+                pvec, qvec, rs_in = plan.p, plan.qinv, plan.Rs
+            else:
+                src, pos = self._ext["src"], self._ext["pos"]
+                pvec = np.where(plan.p < src.shape[0], src[plan.p], -1)
+                qvec = plan.qinv[pos]
+                rs_in = plan.Rs[pos]  # per ORIGINAL row
+            K, cs = plan.lplan.K, plan.cs
+            pidx = np.full((K + 1) * cs, -1, dtype=np.int32)
+            pidx[: plan.n] = pvec
+            self._pidx = torch.as_tensor(pidx, device=dev)
+            self._qidx = torch.as_tensor(np.asarray(qvec, dtype=np.int32),
+                                         device=dev)
+            # the whole solve as one task list (ops/fused_ldiv.py); a device
+            # refactorization changes only the banks and keeps it
+            self._ldiv_sched = None
+            if mode == "inv":
+                self._ldiv_sched = build_ldiv_schedule(
+                    plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
+            # Rs in input row order: the perm-in scales before it permutes
+            self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
+                                       device=dev)
+            # the nd embedding's position of each input row, for the Rs of a
+            # device refactorization
+            self._ext_pos_dev = None if self._ext is None else torch.as_tensor(
+                self._ext["pos"], dtype=torch.int64, device=dev)
+            self._prepare_scan_path()
 
     def _prepare_scan_path(self) -> None:
         """Detect bidiagonal factors (1-D chain matrices) and stage the
@@ -705,30 +710,34 @@ class ParallelSparseLU:
                     plain: bool = False) -> torch.Tensor:
         """:meth:`_direct_solve` with the given banks and row scaling.
         Reads the tile stream: the bfloat16 banks where there are some."""
-        mode = self.config.tri_mode
-        if plain or mode != "inv":
-            gather = perm_gather_plain if plain else perm_gather
-            R = b.shape[1]
-            xw = gather(b, self._pidx, rs).view(
-                self.plan.lplan.K + 1, self.plan.cs, R)
-            blocked_tri_solve(ldata, xw, mode=mode, plain=plain, stream=True)
-            blocked_tri_solve(udata, xw, mode=mode, plain=plain, stream=True)
-            return gather(xw.view(-1, R), self._qidx)
-        if ldata.tiles_bf16 is not None:
-            return fused_ldiv_bf16(b, self._ldiv_sched, ldata.tiles_bf16,
-                                   udata.tiles_bf16, rs)
-        return fused_ldiv(b, self._ldiv_sched, ldata.tiles_t, udata.tiles_t,
-                          rs)
+        with span("lu.ldiv.launch"):
+            mode = self.config.tri_mode
+            if plain or mode != "inv":
+                gather = perm_gather_plain if plain else perm_gather
+                R = b.shape[1]
+                xw = gather(b, self._pidx, rs).view(
+                    self.plan.lplan.K + 1, self.plan.cs, R)
+                blocked_tri_solve(ldata, xw, mode=mode, plain=plain,
+                                  stream=True)
+                blocked_tri_solve(udata, xw, mode=mode, plain=plain,
+                                  stream=True)
+                return gather(xw.view(-1, R), self._qidx)
+            if ldata.tiles_bf16 is not None:
+                return fused_ldiv_bf16(b, self._ldiv_sched, ldata.tiles_bf16,
+                                       udata.tiles_bf16, rs)
+            return fused_ldiv(b, self._ldiv_sched, ldata.tiles_t,
+                              udata.tiles_t, rs)
 
     def _chain_solve(self, b: torch.Tensor, *,
                      plain: bool = False) -> torch.Tensor:
         """``x = A⁻¹ b`` on a chain (``_scan_perm_id``): ``Rs`` folded into
         the forward sweep, then the backward sweep, one kernel launch.
         ``plain=True`` runs the plain PyTorch scan."""
-        sp_ = self._scan_planes
-        solve = bidiag_ldiv_plain if plain else bidiag_ldiv
-        return solve(b, lower=(sp_["aL"], sp_["sL"]),
-                     upper=(sp_["aU"], sp_["sU"]))
+        with span("lu.ldiv.launch"):
+            sp_ = self._scan_planes
+            solve = bidiag_ldiv_plain if plain else bidiag_ldiv
+            return solve(b, lower=(sp_["aL"], sp_["sL"]),
+                         upper=(sp_["aU"], sp_["sU"]))
 
     def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
         """One direct solve of ``ldiv``: the chain solve when the factors
@@ -780,12 +789,18 @@ class ParallelSparseLU:
         one set per CUDA stream: solves on different streams may run at
         once.
         """
-        if self.m != self.n:
-            raise ValueError(f"`F` is not square: m={self.m}, n={self.n}")
-        b, squeeze = self._as_rhs(b)
+        with span("lu.ldiv.rhs"):
+            if self.m != self.n:
+                raise ValueError(f"`F` is not square: m={self.m}, "
+                                 f"n={self.n}")
+            b, squeeze = self._as_rhs(b)
         x = self._solve_once(b)
         for _ in range(refine_steps):
-            x = x + self._solve_once(b - self.matvec(x))
+            with span("lu.ldiv.residual"):
+                r = b - self.matvec(x)
+            d = self._solve_once(r)
+            with span("lu.ldiv.residual"):
+                x = x + d
         return x[:, 0] if squeeze else x
 
     solve = ldiv
@@ -874,10 +889,11 @@ class ParallelSparseLU:
             return
         from .refactor import upload_refactor_plan
 
-        lplan, uplan, rp = self._plan_device_refactor(store_budget)
-        self.plan.lplan = lplan
-        self.plan.uplan = uplan
-        self._refactor_dev = upload_refactor_plan(rp, self.device)
+        with span("lu.setup.refactor_plan"):
+            lplan, uplan, rp = self._plan_device_refactor(store_budget)
+            self.plan.lplan = lplan
+            self.plan.uplan = uplan
+            self._refactor_dev = upload_refactor_plan(rp, self.device)
         self._refactor_plan = rp
         self._prepare_device()
 
@@ -999,30 +1015,38 @@ class ParallelSparseLU:
         steps = int(refine_steps)
 
         def step(a_data, b):
-            if self._refactor_plan is not rp:
-                raise RuntimeError(
-                    "stale refactor-solve step: refactor() rebuilt the "
-                    "factorization after this step was created; call "
-                    "make_refactor_solve_step() again"
-                )
-            a = torch.as_tensor(a_data, dtype=self.dtype, device=self.device)
-            if a.shape != (nnz,):
-                raise ValueError(f"a_data must hold the {nnz} values of A's "
-                                 f"pattern, got shape {tuple(a.shape)}")
-            b, squeeze = self._as_rhs(b)
+            with span("lu.step.inputs"):
+                if self._refactor_plan is not rp:
+                    raise RuntimeError(
+                        "stale refactor-solve step: refactor() rebuilt the "
+                        "factorization after this step was created; call "
+                        "make_refactor_solve_step() again"
+                    )
+                a = torch.as_tensor(a_data, dtype=self.dtype,
+                                    device=self.device)
+                if a.shape != (nnz,):
+                    raise ValueError(f"a_data must hold the {nnz} values of "
+                                     f"A's pattern, got shape "
+                                     f"{tuple(a.shape)}")
+                b, squeeze = self._as_rhs(b)
             out = refactor_pipeline(a, dev)
-            ldata = tri_kernel_from_bank(self.ldata, out["lbank"],
-                                         out["ldiag"])
-            udata = tri_kernel_from_bank(self.udata, out["ubank"],
-                                         out["udiag"])
-            rs = out["rs"]
-            if self._ext_pos_dev is not None:
-                rs = rs[self._ext_pos_dev]
+            with span("lu.refactor.banks"):
+                ldata = tri_kernel_from_bank(self.ldata, out["lbank"],
+                                             out["ldiag"])
+                udata = tri_kernel_from_bank(self.udata, out["ubank"],
+                                             out["udiag"])
+                rs = out["rs"]
+                if self._ext_pos_dev is not None:
+                    rs = rs[self._ext_pos_dev]
             x = self._solve_with(ldata, udata, rs, b)
-            if steps:
-                A_new = self._csr_matrix(a)
-                for _ in range(steps):
-                    x = x + self._solve_with(ldata, udata, rs, b - A_new @ x)
+            for i in range(steps):
+                with span("lu.ldiv.residual"):
+                    if i == 0:
+                        A_new = self._csr_matrix(a)
+                    r = b - A_new @ x
+                d = self._solve_with(ldata, udata, rs, r)
+                with span("lu.ldiv.residual"):
+                    x = x + d
             return x[:, 0] if squeeze else x
 
         return step

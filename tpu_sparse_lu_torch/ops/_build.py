@@ -6,7 +6,9 @@ at first use, into ``tpu_sparse_lu_torch/_build/``, under a name keyed by
 a hash of the sources, the headers they include (``csrc/*.cuh``) and the
 flags, so an edited source is rebuilt and an unchanged one is loaded as
 it is. Nothing is built or imported when this
-module is imported: CPU-only installs never call :func:`load`.
+module is imported: CPU-only installs never call :func:`load`. The first
+load is the span ``lu.setup.kernels``, and a compile inside it
+``lu.setup.kernel_build`` (``trace.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from ..trace import span
 
 __all__ = ["load"]
 
@@ -201,13 +205,15 @@ def load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            srcs = _sources()
-            h = hashlib.sha256(" ".join(_FLAGS).encode())
-            for s in srcs + _headers():
-                h.update(s.name.encode())
-                h.update(s.read_bytes())
-            so = _BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
-            if not so.exists():
-                _compile(srcs, so)
-            _lib = _bind(ctypes.CDLL(str(so)))
+            with span("lu.setup.kernels"):
+                srcs = _sources()
+                h = hashlib.sha256(" ".join(_FLAGS).encode())
+                for s in srcs + _headers():
+                    h.update(s.name.encode())
+                    h.update(s.read_bytes())
+                so = _BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+                if not so.exists():
+                    with span("lu.setup.kernel_build"):
+                        _compile(srcs, so)
+                _lib = _bind(ctypes.CDLL(str(so)))
         return _lib

@@ -46,6 +46,7 @@ from .symbolic import (
     dataclass_from_arrays,
     plan_triangular,
 )
+from .trace import span
 from .utils import _symcore_build
 
 __all__ = [
@@ -419,23 +420,29 @@ def refactor_pipeline(a_data: torch.Tensor, dev: RefactorDevice, *,
     ``plain=True`` runs the plain PyTorch version of every kernel.
     """
     cs = dev.cs
-    store, rs = assemble(a_data, dev.asm, n=dev.n, cs=cs, TF=dev.TF,
-                         TF2=dev.TF2, plain=plain)
-    store, min_piv, linv, uinv = eliminate(store, dev.elim, plain=plain)
-    eye = torch.eye(cs, dtype=store.dtype, device=store.device)
-    diag = store[dev.diag_src]
-    ldiag = torch.cat([torch.tril(diag, -1) + eye, eye[None]])
-    udiag = torch.cat([torch.triu(diag), eye[None]])
-    loff = store[dev.l_off_src]
-    uoff = store[dev.u_off_src]
-    # pivot growth: rows of (Rs·A)[p,q] have max |entry| == 1 after the
-    # equilibration, so max |factor entry| is the growth factor
-    parts = [udiag.abs().amax()]
-    parts += [t.abs().amax() for t in (loff, uoff) if t.numel()]
-    growth = torch.stack(parts).amax()
-    ls = dev.diag_lvlslot
-    lbank = _bank(linv.reshape(-1, cs, cs)[ls], loff)
-    ubank = _bank(uinv.reshape(-1, cs, cs)[ls], uoff)
+    with span("lu.refactor.assemble"):
+        store, rs = assemble(a_data, dev.asm, n=dev.n, cs=cs, TF=dev.TF,
+                             TF2=dev.TF2, plain=plain)
+    with span("lu.refactor.eliminate"):
+        store, min_piv, linv, uinv = eliminate(store, dev.elim, plain=plain)
+    with span("lu.refactor.extract"):
+        eye = torch.eye(cs, dtype=store.dtype, device=store.device)
+        diag = store[dev.diag_src]
+        ldiag = torch.cat([torch.tril(diag, -1) + eye, eye[None]])
+        udiag = torch.cat([torch.triu(diag), eye[None]])
+        loff = store[dev.l_off_src]
+        uoff = store[dev.u_off_src]
+        # pivot growth: rows of (Rs·A)[p,q] have max |entry| == 1 after the
+        # equilibration, so max |factor entry| is the growth factor
+        parts = [udiag.abs().amax()]
+        parts += [t.abs().amax() for t in (loff, uoff) if t.numel()]
+        growth = torch.stack(parts).amax()
+        ls = dev.diag_lvlslot
+        lbank = _bank(linv.reshape(-1, cs, cs)[ls], loff)
+        ubank = _bank(uinv.reshape(-1, cs, cs)[ls], uoff)
+        # free the intermediates inside the span: freed as the function
+        # returns, they would fall between this span and the caller's next
+        del store, eye, diag, loff, uoff, linv, uinv, parts
     return {"lbank": lbank, "ubank": ubank, "ldiag": ldiag, "udiag": udiag,
             "rs": rs, "min_pivot": min_piv, "growth": growth}
 
