@@ -40,6 +40,7 @@ from tpu_sparse_lu.ops.pallas_ldiv import (
 )
 from tpu_sparse_lu.solve import block_rhs as jax_block_rhs
 from tpu_sparse_lu.solve import unblock_rhs as jax_unblock_rhs
+from tpu_sparse_lu_torch.models import block_banded
 from tpu_sparse_lu_torch.ops import fused_ldiv as FL
 
 # the cases of tests/test_torch_ldiv.py, and the headline's pattern (2D
@@ -360,3 +361,111 @@ def test_schedule_rejects_bad_maps():
     S = FL.build_ldiv_schedule(lp, up, p, q, F.n, cs, "cpu")
     assert S.state(5, "cpu").tolist() == [0, 0, 1, 0, 0, 0, 0, 0]
     assert S.state(5, "cpu") is S.state(5, "cpu")
+
+
+def _longest_path(n_tasks, deps):
+    """Tasks on the longest dependency path, by relaxing every edge until
+    nothing changes (Bellman-Ford on the negated lengths), in no
+    particular order."""
+    depth = [1] * n_tasks
+    edges = [(d, t) for t in range(n_tasks) for d in deps[t]]
+    changed = True
+    while changed:
+        changed = False
+        for d, t in edges[::-1]:
+            if depth[d] + 1 > depth[t]:
+                depth[t] = depth[d] + 1
+                changed = True
+    return max(depth, default=0)
+
+
+@pytest.mark.parametrize("name, make, cfg, want", [
+    ("banded_120x30", lambda: block_banded(np.random.default_rng(0), 120, 30),
+     dict(chunk_size=128, ordering="colamd"), 116),
+    ("poisson2d_100", lambda: poisson_2d(100, 100),
+     dict(chunk_size=128, ordering="nd", nd_cutoff=512), 32),
+])
+def test_critical_path_of_the_deployments(name, make, cfg, want):
+    """The stored critical path of the benchmark's deep, narrow plan (two
+    dependent tasks a level: the diagonal wave, then the off-diagonal
+    wave into the next chunk) and of its wide Poisson plan."""
+    F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
+        dtype="float32", **cfg), device="cpu")
+    S = F._ldiv_sched
+    assert S.critical_path == want
+    assert S.critical_path == _longest_path(
+        S.n_tasks, [_deps(S, t) for t in range(S.n_tasks)])
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_critical_path_is_the_longest_path(seed):
+    """On random task graphs (each task waits for a random set of earlier
+    ones) the one pass in ticket order equals a brute-force longest
+    path."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 200))
+    p = float(rng.choice([0.01, 0.05, 0.3]))
+    deps = [sorted(np.flatnonzero(rng.random(t) < p).tolist())
+            for t in range(n)]
+    dep_ptr = np.concatenate([[0], np.cumsum([len(d) for d in deps])])
+    dep = np.asarray([x for d in deps for x in d], dtype=np.int64)
+    assert FL.critical_path(dep_ptr, dep) == _longest_path(n, deps)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_critical_path_of_the_cases(rng, case):
+    _, F = _solver(case, rng)
+    S = F._ldiv_sched
+    assert 1 < S.critical_path < S.n_tasks
+    assert S.critical_path == _longest_path(
+        S.n_tasks, [_deps(S, t) for t in range(S.n_tasks)])
+
+
+def test_strip_rule_adapts_to_the_schedule():
+    """A chain of dependent tasks goes narrow; a schedule bound by its
+    tickets over the resident blocks (many tasks, a short path, R = 64)
+    or by staging its tiles once a strip (the 2D Poisson plan: 629 tasks,
+    502 tiles of 64 KB, a path of 32) keeps wider strips; R = 1 stays 1;
+    the resident grid can differ by width."""
+    widest, tile = max(FL.TASK_US), 128 * 128 * 4
+    G = lambda rb: 132  # one block an SM of an H100 at every width
+    # banded_1600x64 and banded_120x30: 3,200 and 116 dependent tasks
+    for cp, n_tasks, tiles, R in ((3200, 4799, 3198, 16), (116, 173, 114, 8),
+                                  (116, 173, 114, 16)):
+        assert FL.strip_width(R, cp, n_tasks, tiles * tile, G) == 1
+    for R in (8, 16):
+        assert FL.strip_width(R, 32, 629, 502 * tile, G) == 4
+    assert FL.strip_width(64, 32, 629, 502 * tile, G) == widest
+    assert FL.strip_width(64, 40, 200_000, 0, G) == widest
+    # more resident blocks at a width make it cheaper there
+    assert FL.strip_width(64, 40, 200_000, 0,
+                          lambda rb: 132 * (8 if rb == 8 else 1)) == 8
+    for cp, n_tasks in ((3200, 4799), (40, 200_000), (1, 1)):
+        assert FL.strip_width(1, cp, n_tasks, n_tasks * tile, G) == 1
+    # one block: every ticket in turn, so the fewest tickets win
+    assert FL.strip_width(16, 3200, 4799, 3198 * tile,
+                          lambda rb: 1) == widest
+    # the widest of equal costs
+    assert FL.strip_width(16, 10, 10, 0, lambda rb: 10**9) == min(
+        FL.TASK_US, key=lambda rb: (FL.TASK_US[rb], -rb))
+
+
+def test_narrow_launches_stay_zero_on_cpu(rng):
+    """The plain executor runs on CPU tensors at any ``strip``: no launch,
+    narrow or not, and the same bits."""
+    A, F = _solver("laplace1d", rng)
+    S = F._ldiv_sched
+    b = torch.as_tensor(rng.random((A.shape[0], 8)), dtype=F.dtype)
+    before = (FL.fused_ldiv.NARROW_LAUNCHES,
+              FL.fused_ldiv_bf16.NARROW_LAUNCHES, FL.fused_ldiv.LAUNCHES)
+    L, U = F.ldata.tiles_t, F.udata.tiles_t
+    want = FL.fused_ldiv_plain(b, S, L, U, F._rs)
+    for strip in (None, *FL.TASK_US):
+        assert torch.equal(FL.fused_ldiv(b, S, L, U, F._rs, strip=strip),
+                           want)
+        FL.fused_ldiv_bf16(b.float(), S, L.bfloat16(), U.bfloat16(),
+                           F._rs.float(), strip=strip)
+    assert F.ldiv(b).shape == b.shape
+    assert (FL.fused_ldiv.NARROW_LAUNCHES,
+            FL.fused_ldiv_bf16.NARROW_LAUNCHES,
+            FL.fused_ldiv.LAUNCHES) == before

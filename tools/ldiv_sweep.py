@@ -2,12 +2,14 @@
 """Time the headline ``ldiv`` (B1) on one CUDA card, route by route.
 
     python3 tools/ldiv_sweep.py [--tree NAME=PATH ...] [--rs 1,16,64]
+                                [--deployment NAME] [--strip 1,4,8,16]
                                 [--clocks] [NAME=PATH.cu ...]
 
 Needs one CUDA card and ``nvcc``. On the headline deployment
 (``chip_smoke._headline_solver``: 2D Poisson 100x100, chunk_size=128,
-nd, nd_cutoff=512), in float32, float64 and float32 with the bfloat16
-tile stream, at each R of ``--rs``, it records:
+nd, nd_cutoff=512), or the one ``--deployment`` names (``DEPLOYMENTS``:
+the benchmark's block-banded plans), in float32, float64 and float32
+with the bfloat16 tile stream, at each R of ``--rs``, it records:
 
 * ``F._direct_solve(b)`` per solve (the solver's own route: one
   ``ldiv_fused`` launch where the tree has it), eager (CUDA events,
@@ -21,6 +23,13 @@ tile stream, at each R of ``--rs``, it records:
   busy share during a solve;
 * the critical path: the dependent waves of each factor, and each wave's
   blocks (destinations x column strips) against the card's SMs.
+
+``--strip 1,4,8,16`` instead times one ``ldiv_fused`` launch at each strip
+width (``fused_ldiv(..., strip=)``), eager and by graph replay, in turns
+forwards then backwards, holds every width bit for bit to the 16-column
+one, and prints each launch's time over the schedule's critical path (the
+time of one dependent task, ``fused_ldiv.TASK_US``) beside the width the
+wrapper's rule picks.
 
 ``--tree NAME=PATH`` runs the same measurements on another checkout of
 the repository (``PATH`` holds ``tpu_sparse_lu_torch/``), each in a
@@ -40,7 +49,8 @@ shipped source with ``%globaltimer`` stamps patched in at fixed places
 (``CLOCK_PATCH``; the shipped kernel carries none) and prints, for one
 float32 solve at R = 16, the mean of each ticket's wait, load, products,
 reduction and publish times by task kind, the critical chain step by
-step, and the SMs' busy share.
+step, and the SMs' busy share, at the width the wrapper's rule picks
+(and at every width of ``--strip``).
 """
 
 import argparse
@@ -61,6 +71,14 @@ SHIPPED = ROOT / "tpu_sparse_lu_torch" / "csrc" / "ldiv_fused.cu"
 CONFIGS = (("float32", "float32"), ("float64", "float32"),
            ("float32", "bfloat16"))
 SMS = 132
+# --deployment: the matrix and SolverConfig of each of the benchmark's
+# block-banded plans (h100_bench/configs); "headline" is chip_smoke's
+DEPLOYMENTS = {
+    "banded_120x30": (("block_banded", 120, 30),
+                      dict(chunk_size=128, ordering="colamd")),
+    "banded_1600x64": (("block_banded", 1600, 64),
+                       dict(chunk_size=128, ordering="colamd")),
+}
 
 
 def _chip_smoke():
@@ -80,22 +98,57 @@ def _smi(query="name,power.limit") -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def _solver(cs_mod, dtype, stream):
-    """The headline solver, or None where the tree lacks the stream."""
-    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig
-    from tpu_sparse_lu_torch.models import poisson_2d
+def _solver(cs_mod, dtype, stream, deployment="headline"):
+    """The deployment's solver, or None where the tree lacks the
+    stream."""
+    import numpy as np
 
-    H = cs_mod.HEADLINE
-    kw = dict(chunk_size=H["chunk_size"], ordering=H["ordering"],
-              nd_cutoff=H["nd_cutoff"], dtype=dtype)
+    from tpu_sparse_lu_torch import ParallelSparseLU, SolverConfig, models
+
+    if deployment == "headline":
+        H = cs_mod.HEADLINE
+        A = models.poisson_2d(H["nx"], H["ny"])
+        kw = dict(chunk_size=H["chunk_size"], ordering=H["ordering"],
+                  nd_cutoff=H["nd_cutoff"])
+    else:
+        (family, *shape), kw = DEPLOYMENTS[deployment]
+        A = getattr(models, family)(np.random.default_rng(0), *shape)
+        kw = dict(kw)
+    kw["dtype"] = dtype
     if stream != "float32":
         kw["stream_dtype"] = stream
     try:
         cfg = SolverConfig(**kw)
     except (ValueError, NotImplementedError):
         return None
-    return ParallelSparseLU(poisson_2d(H["nx"], H["ny"]), config=cfg,
-                            device="cuda")
+    return ParallelSparseLU(A, config=cfg, device="cuda")
+
+
+def _fused(F, b, strip=None):
+    """One ``ldiv_fused`` launch on F's schedule and tile stream at strip
+    width ``strip`` (default: the rule's)."""
+    from tpu_sparse_lu_torch.ops import fused_ldiv as FL
+
+    L, U = F.ldata, F.udata
+    if L.tiles_bf16 is not None:
+        return FL.fused_ldiv_bf16(b, F._ldiv_sched, L.tiles_bf16,
+                                  U.tiles_bf16, F._rs, strip=strip)
+    return FL.fused_ldiv(b, F._ldiv_sched, L.tiles_t, U.tiles_t, F._rs,
+                         strip=strip)
+
+
+def _chosen_strip(F, R):
+    """The strip width the wrapper's rule picks for F's launch at R."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops import fused_ldiv as FL
+
+    if not hasattr(FL, "launch_strip"):  # an older tree: R alone
+        return FL.strip_width(R)
+    name = ("ldiv_fused_bf16" if F.ldata.tiles_bf16 is not None else
+            f"ldiv_fused_{FL._KERNEL_DTYPES[F.dtype]}")
+    return FL.launch_strip(name, F._ldiv_sched, R,
+                           torch.device("cuda", torch.cuda.current_device()))
 
 
 def _stream_kw():
@@ -177,10 +230,9 @@ def _profile(out_dir, fn, tag, n=3):
 
 
 def _critical_path(F, R):
-    """Waves of each factor and each wave's blocks at R (strips of 1, 4
-    or 16 columns, as the kernels pick them)."""
-    rb = 1 if R == 1 else (4 if R <= 4 else 16)
-    strips = -(-R // rb)
+    """Waves of each factor and each wave's blocks at R (strips of the
+    width the wrapper's rule picks)."""
+    strips = -(-R // _chosen_strip(F, R))
     return {f: [int(w.dst.shape[0]) * strips for w in d.waves]
             for f, d in (("L", F.ldata), ("U", F.udata))}
 
@@ -329,25 +381,27 @@ def _use(side):
     FL._CAPACITY.clear()
 
 
-def _clocks(cs_mod, F, lib, b):
-    """Per ticket of one solve: wait, load and compute times from
-    ``%globaltimer``, by task kind, the critical chain and the SMs'
-    busy share."""
+def _clocks(cs_mod, F, lib, b, strip):
+    """Per ticket of one solve at strip width ``strip``: wait, load and
+    compute times from ``%globaltimer``, by task kind, the critical chain
+    and the SMs' busy share."""
     import ctypes
 
     import numpy as np
     import torch
 
-    from tpu_sparse_lu_torch.ops import fused_ldiv as FL
-
     lib.ldiv_fused_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.ldiv_fused_clocks.restype = ctypes.c_int
     _use(lib)
     S = F._ldiv_sched
-    strips = -(-b.shape[1] // FL.strip_width(b.shape[1]))
+    strips = -(-b.shape[1] // strip)
     n_t = S.n_tasks * strips
+    if n_t > 1 << 16:
+        print(f"[clocks] strip {strip}: {n_t} tickets, more than the 65,536 "
+              f"the clocks copy records; skipped", flush=True)
+        return
     for _ in range(3):
-        F._direct_solve(b)
+        _fused(F, b, strip)
     torch.cuda.synchronize()
     c = np.zeros((n_t, 7), dtype=np.uint64)
     if lib.ldiv_fused_clocks(c.ctypes.data, n_t) != 0:
@@ -359,7 +413,9 @@ def _clocks(cs_mod, F, lib, b):
     tick = np.diff(np.unique(np.concatenate([t1, t2, t3, t4])))
     kinds = np.array([_kind(int(S.task[t // strips, 0]))
                       for t in range(n_t)])
-    print(f"[clocks] one solve, {n_t} tickets on {len(np.unique(sm))} SMs: "
+    print(f"[clocks] one solve at strip {strip} (critical path "
+          f"{S.critical_path} tasks), {n_t} tickets on "
+          f"{len(np.unique(sm))} SMs: "
           f"span {span / 1e3:.2f} us (globaltimer steps >= "
           f"{tick[tick > 0].min() if tick.size else 0} ns); mean us "
           f"(wait for dependencies, load after them, products (later "
@@ -380,8 +436,8 @@ def _clocks(cs_mod, F, lib, b):
     # whose flag came last
     chain, t = [], int(np.argmax(t4))
     while True:
-        task, strip = divmod(t, strips)
-        deps = [d * strips + strip
+        task, col = divmod(t, strips)
+        deps = [d * strips + col
                 for d in S.dep[S.dep_ptr[task]:S.dep_ptr[task + 1]]]
         prev = max(deps, key=lambda d: t4[d]) if deps else None
         lag = t2[t] - max(t1[t], t4[prev]) if prev is not None else 0
@@ -429,7 +485,7 @@ def _versions_run(cs_mod, args, rng):
     times = {}
     try:
         for dtype, stream in CONFIGS:
-            F = _solver(cs_mod, dtype, stream)
+            F = _solver(cs_mod, dtype, stream, args.deployment)
             bs = {R: torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype,
                                      device="cuda") for R in Rs}
             for name in timed:
@@ -453,17 +509,74 @@ def _versions_run(cs_mod, args, rng):
                             lambda _: F._direct_solve(b)),
                             cs_mod._graph_ms(lambda: F._direct_solve(b))))
             if args.clocks and dtype == "float32" and stream == "float32":
-                _clocks(cs_mod, F, libs["shipped_clocks"], bs[16])
+                b = bs[16] if 16 in bs else bs[max(bs)]
+                for w in sorted({_chosen_strip(F, b.shape[1]),
+                                 *_widths(args)}):
+                    _clocks(cs_mod, F, libs["shipped_clocks"], b, w)
             del F
             torch.cuda.empty_cache()
     finally:
         FL._lib = own
         FL._CAPACITY.clear()
-    print(f"[versions] ms per headline solve on {_smi()}, eager / graph "
-          f"replay, forwards and backwards:", flush=True)
+    print(f"[versions] ms per {args.deployment} solve on {_smi()}, eager / "
+          f"graph replay, forwards and backwards:", flush=True)
     for (name, dtype, stream, R), t in times.items():
         print(f"[versions] {name} {dtype}/{stream} R={R}: "
               + ", ".join(f"{e:.4f} / {g:.4f}" for e, g in t), flush=True)
+
+
+def _widths(args):
+    return [int(w) for w in args.strip.split(",")] if args.strip else []
+
+
+def _strips_run(cs_mod, args, rng):
+    """--strip: one launch at each width on the deployment's schedule,
+    held bit for bit to the 16-column width and timed in turns."""
+    import torch
+
+    widths = _widths(args)
+    Rs = [int(r) for r in args.rs.split(",")]
+    m, g = cs_mod._median_ms, cs_mod._graph_ms
+    rows = []
+    for dtype, stream in CONFIGS:
+        F = _solver(cs_mod, dtype, stream, args.deployment)
+        if F is None:
+            continue
+        S = F._ldiv_sched
+        for R in Rs:
+            b = torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype,
+                                device="cuda")
+            want = _fused(F, b, 16)
+            times = {}
+            for turn in (widths, widths[::-1]):
+                for w in turn:
+                    if not torch.equal(_fused(F, b, w), want):
+                        raise AssertionError(
+                            f"{dtype}/{stream} R={R} strip={w}: differs "
+                            f"from the 16-column strip")
+                    times.setdefault(w, []).append((
+                        m(lambda _: _fused(F, b, w), reps=20),
+                        g(lambda: _fused(F, b, w), reps=20)))
+            chosen = _chosen_strip(F, R)
+            for w, t in times.items():
+                graph = sorted(x for _, x in t)[len(t) // 2]
+                rows.append(dict(deployment=args.deployment, dtype=dtype,
+                                 stream=stream, R=R, strip=w,
+                                 chosen=w == chosen, times=t,
+                                 critical_path=S.critical_path,
+                                 n_tasks=S.n_tasks))
+                print(f"[strip] {args.deployment} {dtype}/{stream} R={R} "
+                      f"strip {w}{' (chosen)' if w == chosen else ''}: "
+                      f"{S.n_tasks * -(-R // w)} tickets; eager / graph ms "
+                      + ", ".join(f"{e:.4f} / {x:.4f}" for e, x in t)
+                      + f"; graph us a task on the critical path of "
+                      f"{S.critical_path}: {graph * 1e3 / S.critical_path:.3f}",
+                      flush=True)
+        del F
+        torch.cuda.empty_cache()
+    print(f"[strip] bit for bit at every width; card {_smi()}", flush=True)
+    out = Path(args.out) / f"strips_{args.deployment}_{args.index}.json"
+    out.write_text(json.dumps(rows, indent=1))
 
 
 def _worker(args) -> int:
@@ -486,12 +599,15 @@ def _worker(args) -> int:
           f"on {res['card']}", flush=True)
     kw = _stream_kw()
     rng = np.random.default_rng(15)
+    if args.strip:
+        _strips_run(cs_mod, args, rng)
     if args.sources or args.clocks:
         _versions_run(cs_mod, args, rng)
+    if args.strip or args.sources or args.clocks:
         return 0
     Rs = [int(r) for r in args.rs.split(",")]
     for dtype, stream in CONFIGS:
-        F = _solver(cs_mod, dtype, stream)
+        F = _solver(cs_mod, dtype, stream, args.deployment)
         if F is None:
             print(f"[{args.worker}] {dtype}/{stream}: not in this tree",
                   flush=True)
@@ -571,6 +687,11 @@ def main() -> int:
                         help="NAME=PATH of another checkout; repeatable, "
                              "run in order")
     parser.add_argument("--rs", default="1,16,64")
+    parser.add_argument("--deployment", default="headline",
+                        choices=["headline", *DEPLOYMENTS])
+    parser.add_argument("--strip", default="",
+                        help="comma-separated strip widths to time, e.g. "
+                             "1,4,8,16")
     parser.add_argument("--out", default=str(OUT),
                         help="directory of the per-tree JSON files")
     parser.add_argument("--clocks", action="store_true",
@@ -603,6 +724,7 @@ def main() -> int:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                name, "--root", path, "--index", str(i), "--rs", args.rs,
                "--out", str(Path(args.out).resolve()),
+               "--deployment", args.deployment, "--strip", args.strip,
                *(["--clocks"] if args.clocks else []), *args.sources]
         rc = subprocess.run(cmd, timeout=900).returncode
         if rc != 0:

@@ -14,9 +14,11 @@
 //   perm-out   rows m*cs.. of y:  y[r, :] = x[qidx[r], :].
 //
 // Each task runs once per strip of RB columns of R (a ticket is task *
-// strips + strip), and waits only for the tickets of the same strip that
-// it depends on: the last writer of every carrier block it reads or
-// writes, and every earlier reader of a block it writes.
+// strips + strip; RB is 1, 4, 8 or 16, chosen by the wrapper), and waits
+// only for the tickets of the same strip that it depends on: the last
+// writer of every carrier block it reads or writes, and every earlier
+// reader of a block it writes. RB only groups columns: every output
+// element gets the same arithmetic at every RB.
 //
 // The launch has as many blocks as the card holds at once (or fewer).
 // Each block loops: take the next ticket with atomicAdd (tickets, not
@@ -54,13 +56,27 @@
 //
 // What bounds it on the card: not the bytes (every L and U tile once, 33
 // MB at the headline, 2D Poisson 100x100, cs = 128, nd: ~10 us of HBM),
-// but the critical path, a chain of 32 dependent steps (perm-in, 15 L and
-// 15 U waves, perm-out), each on one SM: a flag seen ~0.4 us after its
-// release, the 8 KB strip from L2 ~0.8 us, the 128 x 128 x 16 product
-// ~2 us, the reduction and stores ~1.1 us, the release ~0.4 us (an H100,
-// tools/ldiv_sweep.py --clocks). The tile loads are off that path. Left
-// for later: splitting a destination's k range over blocks, to shorten
-// each step's product (it changes the summation order), and TMA loads.
+// but the critical path, a chain of dependent tasks, each ticket on one
+// SM: 32 tasks at the headline (perm-in, 15 L and 15 U waves, perm-out),
+// 116 on config 2's block-banded plan and 3,200 on config 5's one-device
+// half, two a level (the diagonal wave, then the off-diagonal wave into
+// the next chunk; LdivSchedule.critical_path). One chain step at a strip
+// of 16 columns: the flag seen ~0.55 us after its release, the strip from
+// L2 ~0.65 us, the 128 x 128 x 16 product ~1.95 us, the reduction and
+// stores ~1.05 us, the release ~0.4 us; at a strip of 1 column 0.5, 0.4,
+// 0.64, 0.2 and 0.45 us (an H100, tools/ldiv_sweep.py --clocks on config
+// 2's plan, R = 16). So the wrapper picks the strip width per launch from
+// the schedule (ops/fused_ldiv.py strip_width): a deep chain runs R
+// chains of 1 column side by side on R SMs, while a plan of wide levels
+// keeps wider strips, since every ticket stages its task's tiles again
+// (the headline at 1 column: 0.397 ms against 0.167 at 16). The rule's
+// time of one chain task at RB = 1, 4, 8, 16 (TASK_US): 2.287, 2.899,
+// 3.572, 4.691 us, config 5's launch (7.31, 9.27, 11.42, 15.00 ms) over
+// its 3,200 tasks, R = 16, float32 (tools/ldiv_sweep.py --strip). The
+// tile loads are off the chain's path. Left for later: keeping the carrier in shared memory
+// across a run of one-tile levels, folding the diagonal wave into the
+// off-diagonal gather, splitting a task's rows or k range over blocks,
+// and TMA loads.
 
 #include <cuda/atomic>
 #include <cuda_bf16.h>
@@ -468,11 +484,15 @@ int capacity_rb(int cs) {
 }
 
 template <typename T, typename TT>
-int capacity(int cs, int R) {
-  if (cs < 1 || cs > kMaxCs || R < 1) return -(int)cudaErrorInvalidValue;
-  if (R == 1) return capacity_rb<T, TT, 1>(cs);
-  if (R <= 4) return capacity_rb<T, TT, 4>(cs);
-  return capacity_rb<T, TT, 16>(cs);
+int capacity(int cs, int RB) {
+  if (cs < 1 || cs > kMaxCs) return -(int)cudaErrorInvalidValue;
+  switch (RB) {
+    case 1: return capacity_rb<T, TT, 1>(cs);
+    case 4: return capacity_rb<T, TT, 4>(cs);
+    case 8: return capacity_rb<T, TT, 8>(cs);
+    case 16: return capacity_rb<T, TT, 16>(cs);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename TT, int RB>
@@ -497,22 +517,25 @@ int launch(T* y, T* x, const T* b, const T* rs, const TT* lbank,
            const TT* ubank, const int32_t* task, const int32_t* dep_ptr,
            const int32_t* dep, const int32_t* ent_tile,
            const int32_t* ent_src, const int32_t* pidx, const int32_t* qidx,
-           int32_t* state, int n_tasks, int64_t n, int cs, int R, int grid,
-           cudaStream_t stream) {
+           int32_t* state, int n_tasks, int64_t n, int cs, int R, int RB,
+           int grid, cudaStream_t stream) {
   if (cs < 1 || cs > kMaxCs || R < 1 || grid < 1 || n_tasks < 1)
     return (int)cudaErrorInvalidValue;
-  // column strip: as wide as R up to 16, as csrc/ldiv.cu picks it
-  if (R == 1)
-    return launch_rb<T, TT, 1>(y, x, b, rs, lbank, ubank, task, dep_ptr, dep,
-                               ent_tile, ent_src, pidx, qidx, state, n_tasks,
-                               n, cs, R, grid, stream);
-  if (R <= 4)
-    return launch_rb<T, TT, 4>(y, x, b, rs, lbank, ubank, task, dep_ptr, dep,
-                               ent_tile, ent_src, pidx, qidx, state, n_tasks,
-                               n, cs, R, grid, stream);
-  return launch_rb<T, TT, 16>(y, x, b, rs, lbank, ubank, task, dep_ptr, dep,
-                              ent_tile, ent_src, pidx, qidx, state, n_tasks,
-                              n, cs, R, grid, stream);
+  // column strip: the width the wrapper chose (ops/fused_ldiv.py
+  // strip_width); any width gives the same bits
+#define LDIV_FUSED_RB(W)                                                     \
+  case W:                                                                    \
+    return launch_rb<T, TT, W>(y, x, b, rs, lbank, ubank, task, dep_ptr,     \
+                               dep, ent_tile, ent_src, pidx, qidx, state,    \
+                               n_tasks, n, cs, R, grid, stream);
+  switch (RB) {
+    LDIV_FUSED_RB(1)
+    LDIV_FUSED_RB(4)
+    LDIV_FUSED_RB(8)
+    LDIV_FUSED_RB(16)
+  }
+#undef LDIV_FUSED_RB
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -526,14 +549,15 @@ extern "C" {
                           const int32_t* dep, const int32_t* ent_tile,       \
                           const int32_t* ent_src, const int32_t* pidx,       \
                           const int32_t* qidx, int32_t* state, int n_tasks,  \
-                          int64_t n, int cs, int R, int grid, void* stream) { \
+                          int64_t n, int cs, int R, int RB, int grid,        \
+                          void* stream) {                                    \
     return launch<T, TT>(y, x, b, rs, reinterpret_cast<const TT*>(lbank),   \
                          reinterpret_cast<const TT*>(ubank), task, dep_ptr,  \
                          dep, ent_tile, ent_src, pidx, qidx, state, n_tasks, \
-                         n, cs, R, grid, (cudaStream_t)stream);              \
+                         n, cs, R, RB, grid, (cudaStream_t)stream);          \
   }                                                                          \
-  int ldiv_fused_##suffix##_capacity(int cs, int R) {                        \
-    return capacity<T, TT>(cs, R);                                           \
+  int ldiv_fused_##suffix##_capacity(int cs, int RB) {                       \
+    return capacity<T, TT>(cs, RB);                                          \
   }
 
 LDIV_FUSED_ENTRY(f32, float, float, float)

@@ -323,10 +323,53 @@ def _device(device) -> torch.device:
     return dev
 
 
-def strip_width(R: int) -> int:
-    """Columns of R one ticket covers: as wide as R up to 16, as
-    ``launch_wave`` picks them (``csrc/ldiv.cu``)."""
-    return 1 if R == 1 else (4 if R <= 4 else 16)
+# the strip widths the kernel is built for, and the time of one ticket on a
+# chain of single-tile tasks at each (cs = 128, float32 tiles, µs): a
+# launch's CUDA-graph replay time over its critical path on the
+# banded_1600x64 plan, 3,200 dependent tasks, R = 16 (7.31, 9.27, 11.42,
+# 15.00 ms; tools/ldiv_sweep.py --strip; H100 80GB HBM3, 700 W)
+TASK_US = {1: 2.287, 4: 2.899, 8: 3.572, 16: 4.691}
+# the rate at which the card's blocks together stage tiles into shared
+# memory when strips are many: every ticket stages its task's tiles, so a
+# launch stages them once per strip. 16 strips of the 2D Poisson 100x100
+# plan (502 tiles of 64 KB) took 0.397 ms, 1.33 TB/s (same run)
+STAGE_BYTES_PER_US = 1.33e6
+
+
+def strip_width(R: int, critical_path: int, n_tasks: int, tile_bytes: int,
+                grid) -> int:
+    """Columns of R one ticket covers: the width in :data:`TASK_US` that
+    minimises the launch's time as the longest of its chain,
+    ``critical_path × t(RB)``, its tickets spread over the resident
+    blocks, ``n_tasks × ⌈R/RB⌉ × t(RB) / grid(RB)``, and its tiles staged
+    once per strip, ``⌈R/RB⌉ × tile_bytes`` at :data:`STAGE_BYTES_PER_US`;
+    the widest on a tie, and 1 at R = 1. A chain of dependent tasks goes
+    narrow, each strip a chain of its own on its own SM; a schedule with
+    many tasks or tiles and a short path keeps wider strips.
+    ``tile_bytes`` — the bytes of the tiles the schedule's tasks read,
+    each once; ``grid(rb)`` — the blocks of a launch at width ``rb``. Any
+    width gives the same bits."""
+    if R == 1:
+        return 1
+
+    def cost(rb):
+        t, strips = TASK_US[rb], -(-R // rb)
+        return max(critical_path * t, n_tasks * strips * t / grid(rb),
+                   strips * tile_bytes / STAGE_BYTES_PER_US)
+
+    return min(sorted(TASK_US, reverse=True), key=cost)
+
+
+def critical_path(dep_ptr: np.ndarray, dep: np.ndarray) -> int:
+    """Tasks on the longest path through the dependencies ``dep[dep_ptr[t]:
+    dep_ptr[t+1]]`` of each task ``t``, every one of them earlier than
+    ``t``: one pass in ticket order."""
+    ptr, dep = dep_ptr.tolist(), dep.tolist()
+    depth = []
+    for t in range(len(ptr) - 1):
+        depth.append(1 + max((depth[d] for d in dep[ptr[t]:ptr[t + 1]]),
+                             default=0))
+    return max(depth, default=0)
 
 
 @dataclasses.dataclass
@@ -344,9 +387,10 @@ class LdivSchedule:
     a carrier block), in the wave's CSR order. ``dep[dep_ptr[t]:
     dep_ptr[t+1]]`` are the earlier tasks ``t`` waits for: every
     read-after-write, write-after-write and write-after-read conflict on a
-    carrier block. Each task runs once per strip of
-    :func:`strip_width` columns, and a strip waits only for the same strip
-    of its dependencies: ticket ``t * strips + strip``.
+    carrier block. ``critical_path`` is the number of tasks on the longest
+    path through them. Each task runs once per strip of :func:`strip_width`
+    columns, and a strip waits only for the same strip of its
+    dependencies: ticket ``t * strips + strip``.
 
     Host arrays are NumPy int32; :meth:`on` gives them on a device.
     :meth:`state` holds the kernel's counters and ready flags, one set per
@@ -367,8 +411,10 @@ class LdivSchedule:
 
     def __post_init__(self):
         self.device = _device(self.device)
+        self.critical_path = critical_path(self.dep_ptr, self.dep)
         self._on = {}
         self._state = {}
+        self._strip = {}  # (kernel, device, R, grid) -> strip width
         # the tiles each bank must hold; the entries lie in task order
         upper = np.repeat((self.task[:, 0] & BANK_U) != 0,
                           self.task[:, 3] - self.task[:, 2])
@@ -527,9 +573,43 @@ def fused_ldiv_plain(b: torch.Tensor, sched: LdivSchedule,
 _CAPACITY = {}  # (kernel, device, cs, strip width) -> resident blocks
 
 
+def _capacity(name: str, device, cs: int, rb: int) -> int:
+    """Blocks of kernel ``name`` at strip width ``rb`` the card holds at
+    once."""
+    key = (name, device, cs, rb)
+    if key not in _CAPACITY:
+        cap = getattr(_lib(), f"{name}_capacity")(cs, rb)
+        if cap < 0:
+            _check(-cap, name)
+        _CAPACITY[key] = cap
+    return _CAPACITY[key]
+
+
+# bytes of a tile element of each kernel's banks
+_TILE_SIZE = {"ldiv_fused_f32": 4, "ldiv_fused_f64": 8, "ldiv_fused_bf16": 2}
+
+
+def launch_strip(name: str, sched: LdivSchedule, R: int, device,
+                 grid: Optional[int] = None) -> int:
+    """The strip width :func:`strip_width` picks for a launch of kernel
+    ``name`` on ``sched`` at ``R`` columns and ``grid`` blocks (default:
+    as many as the card holds at each width); kept on the schedule."""
+    key = (name, device, R, grid)
+    rb = sched._strip.get(key)
+    if rb is None:
+        blocks = ((lambda w: grid) if grid is not None else
+                  lambda w: _capacity(name, device, sched.cs, w))
+        tile_bytes = sched.ent_tile.size * sched.cs ** 2 * _TILE_SIZE[name]
+        rb = sched._strip[key] = strip_width(
+            R, sched.critical_path, sched.n_tasks, tile_bytes, blocks)
+    return rb
+
+
 def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
                   lbank: torch.Tensor, ubank: torch.Tensor, rs: torch.Tensor,
-                  grid: Optional[int]) -> torch.Tensor:
+                  grid: Optional[int], strip: Optional[int]):
+    """One launch; returns ``y`` and whether the rule chose a strip
+    narrower than ``min(R, 16)``."""
     n, R = b.shape
     cs = sched.cs
     _require(b.dim() == 2 and b.is_contiguous() and n == sched.n,
@@ -543,16 +623,14 @@ def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
                  f"got {tuple(bank.shape)}")
     _require(cs <= _lib().max_chunk, f"the CUDA ldiv kernel takes "
              f"chunk_size <= {_lib().max_chunk}, got {cs}")
-    rb = strip_width(R)
+    rb = strip
+    if rb is None:
+        rb = launch_strip(name, sched, R, b.device, grid)
+    _require(rb in TASK_US, f"strip must be one of {sorted(TASK_US)}, "
+             f"got {rb}")
     n_tickets = sched.n_tasks * -(-R // rb)
     if grid is None:
-        key = (name, b.device, cs, rb)
-        if key not in _CAPACITY:
-            cap = getattr(_lib(), f"{name}_capacity")(cs, R)
-            if cap < 0:
-                _check(-cap, name)
-            _CAPACITY[key] = cap
-        grid = _CAPACITY[key]
+        grid = _capacity(name, b.device, cs, rb)
     grid = max(1, min(int(grid), n_tickets))
     stream = _stream(b)
     state = sched.state(n_tickets, b.device, stream)
@@ -565,14 +643,15 @@ def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
         i["dep_ptr"].data_ptr(), i["dep"].data_ptr(),
         i["ent_tile"].data_ptr(), i["ent_src"].data_ptr(),
         i["pidx"].data_ptr(), i["qidx"].data_ptr(), state.data_ptr(),
-        sched.n_tasks, n, cs, R, grid, stream)
+        sched.n_tasks, n, cs, R, rb, grid, stream)
     _check(rc, name)
-    return y
+    return y, strip is None and rb < min(R, 16)
 
 
 def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
                ubank: torch.Tensor, rs: torch.Tensor, *,
-               grid: Optional[int] = None) -> torch.Tensor:
+               grid: Optional[int] = None,
+               strip: Optional[int] = None) -> torch.Tensor:
     """``y = ldiv`` of ``b`` (n, R) in one launch of ``ldiv_fused``
     (``csrc/ldiv_fused.cu``): perm-in with the row scaling ``rs`` (n,),
     the L and U waves on the factor banks ``lbank``/``ubank`` (transposed
@@ -589,7 +668,12 @@ def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
     on that stream inside the capture puts the flags' zeroing into every
     replay: warm up on the capture stream). ``grid`` — blocks of the
     launch (default: as many as the card holds at once); any number from
-    1 up gives the same bits. A CPU tensor runs :func:`fused_ldiv_plain`.
+    1 up gives the same bits. ``strip`` — columns of R a ticket covers, one
+    of :data:`TASK_US` (default: :func:`strip_width`'s choice for this
+    schedule, R and grid); any width gives the same bits. A CPU tensor
+    runs :func:`fused_ldiv_plain`. ``LAUNCHES`` counts the launches,
+    ``NARROW_LAUNCHES`` those where the rule chose a strip narrower than
+    ``min(R, 16)``.
     """
     if _device_kind(b, lbank, ubank, rs) == "cpu":
         return fused_ldiv_plain(b, sched, lbank, ubank, rs)
@@ -597,19 +681,21 @@ def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
     _require(lbank.dtype == ubank.dtype == b.dtype, f"banks of "
              f"{lbank.dtype}/{ubank.dtype} for {b.dtype} (bfloat16 banks: "
              f"fused_ldiv_bf16)")
-    y = _launch_fused(f"ldiv_fused_{_KERNEL_DTYPES[b.dtype]}", b, sched,
-                      lbank, ubank, rs, grid)
+    y, narrow = _launch_fused(f"ldiv_fused_{_KERNEL_DTYPES[b.dtype]}", b,
+                              sched, lbank, ubank, rs, grid, strip)
     fused_ldiv.LAUNCHES += 1
+    fused_ldiv.NARROW_LAUNCHES += narrow
     return y
 
 
 fused_ldiv.LAUNCHES = 0
+fused_ldiv.NARROW_LAUNCHES = 0
 
 
 def fused_ldiv_bf16(b: torch.Tensor, sched: LdivSchedule,
                     lbank: torch.Tensor, ubank: torch.Tensor,
-                    rs: torch.Tensor, *,
-                    grid: Optional[int] = None) -> torch.Tensor:
+                    rs: torch.Tensor, *, grid: Optional[int] = None,
+                    strip: Optional[int] = None) -> torch.Tensor:
     """:func:`fused_ldiv` with bfloat16 banks and a float32 ``b``: each
     tile widens to float32 as it is read, as in
     :func:`wave_apply_bf16`."""
@@ -619,9 +705,12 @@ def fused_ldiv_bf16(b: torch.Tensor, sched: LdivSchedule,
              f"{b.dtype}")
     if _device_kind(b, lbank, ubank, rs) == "cpu":
         return fused_ldiv_plain(b, sched, lbank, ubank, rs)
-    y = _launch_fused("ldiv_fused_bf16", b, sched, lbank, ubank, rs, grid)
+    y, narrow = _launch_fused("ldiv_fused_bf16", b, sched, lbank, ubank, rs,
+                              grid, strip)
     fused_ldiv_bf16.LAUNCHES += 1
+    fused_ldiv_bf16.NARROW_LAUNCHES += narrow
     return y
 
 
 fused_ldiv_bf16.LAUNCHES = 0
+fused_ldiv_bf16.NARROW_LAUNCHES = 0
