@@ -7,11 +7,16 @@ tree and version by version.
 Needs one CUDA card and ``nvcc``. Cells: BASELINE config 1's ``ldiv``
 (``chip_smoke._config1_solver``: ``laplacian_1d(20000)``, natural,
 ``pivot_threshold=0.0``, chunk_size=128, float32) at R = 1 and 16, and
-``bidiag_ldiv`` on seeded random planes at n = 1,048,577, R = 1 and 16,
-float32 and float64, both sweeps. Each cell is timed eager
+the tile solve on the same factors (``F._direct_solve``: one
+``ldiv_fused`` launch, what ``ldiv`` would run without the chain
+dispatch), and ``bidiag_ldiv`` on seeded random planes at n = 1,048,577,
+R = 1 and 16, float32 and float64, both sweeps. Each cell is timed eager
 (``chip_smoke._median_ms``: CUDA events around each call, host included)
 and by CUDA-graph replay (``chip_smoke._graph_ms``: device time); eager
-minus replay is the wrapper's host cost.
+minus replay is the wrapper's host cost. Each tree also prints the
+config-1 solves' widest forward and backward errors against the
+benchmark's float64 reference (``h100_bench/reference/dense_f64.py``),
+chain and tiles on the same right-hand sides.
 
 ``--tree NAME=PATH`` times another checkout (``PATH`` holds
 ``tpu_sparse_lu_torch/``, e.g. a ``git archive`` of an older commit
@@ -56,6 +61,8 @@ def _cells(cs, rng):
                             device="cuda")
         cells.append((f"config1 f32 R={R}",
                       lambda b=b: F1._chain_solve(b)))
+        cells.append((f"config1 f32 R={R} tiles",
+                      lambda b=b: F1._direct_solve(b)))
     for dt in (torch.float32, torch.float64):
         lower, upper = cs._random_planes(rng, BIG_N, dt)
         for R in (1, 16):
@@ -65,6 +72,29 @@ def _cells(cs, rng):
                           lambda b=b, lo=lower, up=upper:
                           bidiag_ldiv(b, lower=lo, upper=up)))
     return cells
+
+
+def _config1_errors(cs, rng) -> dict:
+    """{label: (forward error, backward error)}, each the widest over the
+    columns, of config 1's chain and tile solves on the same panels."""
+    import torch
+
+    from h100_bench.reference import dense_f64
+
+    A, F = cs._config1_solver()
+    out = {}
+    for R in (1, 16):
+        B = rng.standard_normal((F.n, R))
+        b = torch.as_tensor(B, dtype=torch.float32, device="cuda")
+        B = b.double().cpu().numpy()
+        ref = dense_f64.solve(A, B, "cuda")
+        for label, x in ((f"config1 f32 R={R}", F._chain_solve(b)),
+                         (f"config1 f32 R={R} tiles", F._direct_solve(b))):
+            X = x.double().cpu().numpy()
+            out[label] = (float(dense_f64.forward_errors(X, ref).max()),
+                          float(dense_f64.backward_errors(A, X, B,
+                                                          "cuda").max()))
+    return out
 
 
 def _time(cs, fn):
@@ -85,9 +115,14 @@ def _worker(args) -> int:
     build_s = time.perf_counter() - t0
     card = _sweep.smi()
     res = {"tree": args.worker, "card": card, "build_s": build_s, "cells": {}}
+    for label, (fwd, bwd) in _config1_errors(
+            cs, np.random.default_rng(17)).items():
+        res["cells"][label] = {"fwd_err": fwd, "bwd_err": bwd}
+        print(f"[{args.worker}] {label}: fwd_err {fwd:.3e}, bwd_err "
+              f"{bwd:.3e}", flush=True)
     for label, fn in _cells(cs, np.random.default_rng(16)):
         e, g = _time(cs, fn)
-        res["cells"][label] = {"eager_ms": e, "graph_ms": g}
+        res["cells"].setdefault(label, {}).update(eager_ms=e, graph_ms=g)
         print(f"[{args.worker}] {label}: eager {e:.4f} ms, graph replay "
               f"{g:.4f} ms, host {e - g:+.4f} ms", flush=True)
     print(json.dumps(res))

@@ -672,6 +672,13 @@ class ParallelSparseLU:
                              chain_planes(lb, ub, rs, np_dt).items()}
 
     @property
+    def solve_path(self) -> str:
+        """Which direct solve ``ldiv`` runs: ``"chain"``, one launch of
+        the chain kernel (bidiagonal factors under identity permutations,
+        :meth:`_prepare_scan_path`), or ``"tiles"``, the tile solve."""
+        return "chain" if self._scan_perm_id else "tiles"
+
+    @property
     def _stream_dt(self) -> torch.dtype:
         """dtype of the L/U tile stream ``ldiv`` reads
         (``SolverConfig.stream_dtype``)."""
@@ -733,7 +740,7 @@ class ParallelSparseLU:
         """``x = A⁻¹ b`` on a chain (``_scan_perm_id``): ``Rs`` folded into
         the forward sweep, then the backward sweep, one kernel launch.
         ``plain=True`` runs the plain PyTorch scan."""
-        with span("lu.ldiv.launch"):
+        with span("lu.ldiv.chain"):
             sp_ = self._scan_planes
             solve = bidiag_ldiv_plain if plain else bidiag_ldiv
             return solve(b, lower=(sp_["aL"], sp_["sL"]),

@@ -11,9 +11,10 @@ to what the host was doing. Without a profiler no range is opened.
 Names are ``lu.<layer>.<phase>``:
 
 * a solve: ``lu.ldiv.rhs`` (checks, the right-hand side to a contiguous
-  panel), ``lu.ldiv.launch`` (one direct solve: checks, buffers, the
-  kernel launch), ``lu.ldiv.residual`` (a refinement sweep's residual, and
-  its update, each a call);
+  panel), ``lu.ldiv.launch`` (one direct solve on the tiles: checks,
+  buffers, the kernel launch) or, where ``ldiv`` runs the chain solve,
+  ``lu.ldiv.chain`` (the same for the chain kernel), ``lu.ldiv.residual``
+  (a refinement sweep's residual, and its update, each a call);
 * the refactor-solve step: ``lu.step.inputs``, ``lu.refactor.assemble``,
   ``lu.refactor.eliminate``, ``lu.refactor.extract`` (the solve banks'
   tiles and the pivot growth), ``lu.refactor.banks`` (the banks and the
