@@ -21,6 +21,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 from _approx import assert_isapprox
+from _deep_plan import DEEP, READ_AHEAD, RUN_BATCH, batch_waits, padded_waits
 
 import tpu_sparse_lu as jlu
 import tpu_sparse_lu_torch as tlu
@@ -324,7 +325,7 @@ def test_clock_patch_fits_the_shipped_kernel():
     src = (root / "tpu_sparse_lu_torch" / "csrc" / "ldiv_fused.cu").read_text()
     assert "CLOCK" not in src and "globaltimer" not in src
     patched = sweep._with_clocks(src)
-    assert patched.count("CLOCK(") == 11
+    assert patched.count("CLOCK(") == 18
     assert "int ldiv_fused_clocks(void* host, int n)" in patched
     with pytest.raises(SystemExit, match="not once"):
         sweep._with_clocks(src.replace("    // 3. the task\n", ""))
@@ -452,12 +453,15 @@ def test_strip_rule_adapts_to_the_schedule():
 
 def test_narrow_launches_stay_zero_on_cpu(rng):
     """The plain executor runs on CPU tensors at any ``strip``: no launch,
-    narrow or not, and the same bits."""
+    narrow or not, with runs (the chain of this plan) or not, and the
+    same bits."""
     A, F = _solver("laplace1d", rng)
     S = F._ldiv_sched
+    assert S.runs
     b = torch.as_tensor(rng.random((A.shape[0], 8)), dtype=F.dtype)
     before = (FL.fused_ldiv.NARROW_LAUNCHES,
-              FL.fused_ldiv_bf16.NARROW_LAUNCHES, FL.fused_ldiv.LAUNCHES)
+              FL.fused_ldiv_bf16.NARROW_LAUNCHES, FL.fused_ldiv.LAUNCHES,
+              FL.fused_ldiv.RUN_LAUNCHES, FL.fused_ldiv_bf16.RUN_LAUNCHES)
     L, U = F.ldata.tiles_t, F.udata.tiles_t
     want = FL.fused_ldiv_plain(b, S, L, U, F._rs)
     for strip in (None, *FL.TASK_US):
@@ -468,4 +472,254 @@ def test_narrow_launches_stay_zero_on_cpu(rng):
     assert F.ldiv(b).shape == b.shape
     assert (FL.fused_ldiv.NARROW_LAUNCHES,
             FL.fused_ldiv_bf16.NARROW_LAUNCHES,
-            FL.fused_ldiv.LAUNCHES) == before
+            FL.fused_ldiv.LAUNCHES, FL.fused_ldiv.RUN_LAUNCHES,
+            FL.fused_ldiv_bf16.RUN_LAUNCHES) == before
+
+
+# the run cases: the cases above, the benchmark's deep plan, the card
+# test's Poisson plan and a small block-banded plan
+RUN_CASES = dict(CASES, **{
+    "banded_120x30": (lambda rng: block_banded(np.random.default_rng(0), 120,
+                                                30),
+                      dict(chunk_size=128, ordering="colamd")),
+    "poisson_40": (lambda rng: poisson_2d(40, 40),
+                   dict(chunk_size=32, ordering="nd")),
+    "banded_small": (lambda rng: block_banded(rng, 12, 10),
+                     dict(chunk_size=16, ordering="colamd")),
+})
+
+
+def _run_solver(case, rng, **extra):
+    make, cfg = RUN_CASES[case]
+    A = make(rng)
+    return A, tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg, **extra),
+                                   device="cpu")
+
+
+def _one_tile(S, t):
+    f, _, e0, e1 = S.task[t].tolist()
+    return (f & FL.KIND_MASK) == FL.WAVE and e1 - e0 == 1
+
+
+def _joins(S, t0, t):
+    """Whether task ``t`` may follow ``t - 1`` in a run that starts at
+    ``t0``: both one-tile wave tasks, ``t`` reading the block ``t - 1``
+    wrote, accumulating (if at all) into another, and depending on ``t -
+    1`` and on nothing else at or after ``t0``."""
+    if not (_one_tile(S, t - 1) and _one_tile(S, t)):
+        return False
+    f, d, e0, _ = S.task[t].tolist()
+    prev = int(S.task[t - 1, 1])
+    deps = _deps(S, t)
+    return (int(S.ent_src[e0]) == prev
+            and not (f & FL.ACCUMULATE and d == prev)
+            and t - 1 in deps and all(x < t0 or x == t - 1 for x in deps))
+
+
+@pytest.mark.parametrize("case", sorted(RUN_CASES))
+def test_runs_are_maximal_chains(rng, case):
+    """Every run is at least two one-tile wave tasks, each after the first
+    depending on the one before it and otherwise only on tasks before the
+    run; no run can take the task after it, nor a task outside any run
+    before it; the units partition the tasks, and each task's unit polls
+    its dependencies less the task before it in its run."""
+    _, F = _run_solver(case, rng)
+    S = F._ldiv_sched
+    in_run = np.zeros(S.n_tasks, dtype=bool)
+    for t0, t1 in S.runs:
+        assert t1 > t0
+        assert all(_joins(S, t0, t) for t in range(t0 + 1, t1 + 1))
+        assert t1 + 1 == S.n_tasks or not _joins(S, t0, t1 + 1)
+        if t0 > 0 and not in_run[t0 - 1]:
+            assert not _joins(S, t0 - 1, t0)
+        in_run[t0:t1 + 1] = True
+    assert S.run_tasks == int(in_run.sum())
+    starts = [t0 for t0, _ in S.runs]
+    units = [(int(a), int(b)) for a, b in zip(S.unit_ptr[:-1],
+                                              S.unit_ptr[1:])]
+    assert S.n_units == len(units) == S.n_tasks - S.run_tasks + len(S.runs)
+    assert [a for a, b in units if b - a > 1] == starts
+    assert units[0][0] == 0 and units[-1][1] == S.n_tasks
+    for t in range(S.n_tasks):
+        want = _deps(S, t)
+        if t > 0 and in_run[t] and t not in starts:
+            want.remove(t - 1)
+        assert S.wait[S.wait_ptr[t]:S.wait_ptr[t + 1]].tolist() == want
+        f, d, e0, e1 = S.task[t].tolist()
+        one = (f & FL.KIND_MASK) == FL.WAVE and e1 - e0 == 1
+        assert S.meta[t].tolist() == [f, d] + (
+            [int(S.ent_tile[e0]), int(S.ent_src[e0])] if one else [-1, -1])
+    if not S.runs:  # no run: the tickets are the tasks, as before runs
+        assert S.unit_ptr.tolist() == list(range(S.n_tasks + 1))
+
+
+def _random_unit_order(S, rng):
+    """A seeded random topological order of the units (a run's tasks
+    together and in order), as the task ids to run."""
+    units = list(zip(S.unit_ptr[:-1].tolist(), S.unit_ptr[1:].tolist()))
+    of = np.repeat(np.arange(len(units)), np.diff(S.unit_ptr))
+    children = [set() for _ in units]
+    indeg = np.zeros(len(units), dtype=int)
+    for u, (a, b) in enumerate(units):
+        for d in set(of[S.wait[S.wait_ptr[a]:S.wait_ptr[b]]].tolist()):
+            assert d < u
+            children[d].add(u)
+            indeg[u] += 1
+    ready = [u for u in range(len(units)) if indeg[u] == 0]
+    order = []
+    while ready:
+        i = int(rng.integers(len(ready)))
+        ready[i], ready[-1] = ready[-1], ready[i]
+        u = ready.pop()
+        order.extend(range(*units[u]))
+        for c in children[u]:
+            indeg[c] -= 1
+            if indeg[c] == 0:
+                ready.append(c)
+    assert sorted(order) == list(range(S.n_tasks))
+    return order
+
+
+@pytest.mark.parametrize("case", sorted(RUN_CASES))
+def test_run_order_gives_the_same_bits(rng, case):
+    """The plain executor over the units in random orders that keep each
+    run's tasks together (what the kernel's tickets allow, their polls the
+    only order between units) equals ticket order bit for bit, in float32
+    and with bfloat16 tiles."""
+    A, F = _run_solver(case, rng, dtype="float32")
+    S = F._ldiv_sched
+    b = torch.as_tensor(rng.standard_normal((A.shape[0], 3)),
+                        dtype=torch.float32)
+    for L, U in ((F.ldata.tiles_t, F.udata.tiles_t),
+                 (F.ldata.tiles_t.bfloat16(), F.udata.tiles_t.bfloat16())):
+        want = FL.fused_ldiv_plain(b, S, L, U, F._rs)
+        for seed in range(2):
+            order = _random_unit_order(S, np.random.default_rng(seed))
+            assert torch.equal(
+                FL.fused_ldiv_plain(b, S, L, U, F._rs, order=order), want)
+
+
+@pytest.mark.parametrize("name, make, cfg, want, runs", [
+    ("banded_120x30", lambda: block_banded(np.random.default_rng(0), 120, 30),
+     dict(chunk_size=128, ordering="colamd"), 114, [58, 56]),
+    ("poisson2d_100", lambda: poisson_2d(100, 100),
+     dict(chunk_size=128, ordering="nd", nd_cutoff=512), 2, [3]),
+])
+def test_run_path_of_the_deployments(name, make, cfg, want, runs):
+    """The deep plan's path lies in two runs (the L levels and the last
+    U diagonal wave, then the other U levels) but for its perm-in and
+    perm-out; the Poisson plan has one short run. The strip rule with run
+    times keeps 1 column on the deep plan and 4 on the Poisson plan."""
+    F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
+        dtype="float32", **cfg), device="cpu")
+    S = F._ldiv_sched
+    assert S.run_path == want
+    assert [t1 - t0 + 1 for t0, t1 in S.runs] == runs
+    assert S.run_tasks == sum(runs)
+    tile = S.ent_tile.size * 128 * 128 * 4
+    for R in (8, 16):
+        rb = FL.strip_width(R, S.critical_path, S.n_tasks, tile,
+                            lambda rb: 132, S.run_path, S.run_tasks)
+        assert rb == (1 if name.startswith("banded") else 4), (R, rb)
+
+
+@pytest.mark.parametrize("chunk", [128, 45])
+def test_float64_launches_cost_no_run(rng, monkeypatch, chunk):
+    """The kernels whose ring holds two tiles take runs (float32 and
+    bfloat16 tiles, as the kernel says on the card), and the rule costs
+    their run tasks at ``RUN_TASK_US``; a float64 launch takes none, nor
+    does any launch at a tile the ring's bulk copy cannot take (chunk 45:
+    not whole 16-byte pieces), and those are costed as before runs."""
+    monkeypatch.setattr(FL, "_TAKES_RUNS", {
+        "ldiv_fused_f32": True, "ldiv_fused_bf16": True,
+        "ldiv_fused_f64": False})
+    F = tlu.ParallelSparseLU(
+        block_banded(np.random.default_rng(0), 40, 9),
+        config=tlu.SolverConfig(dtype="float32", chunk_size=chunk,
+                                ordering="colamd"), device="cpu")
+    S = F._ldiv_sched
+    assert S.runs and S.cs == chunk
+    tile = S.ent_tile.size * S.cs ** 2
+    for name, size in FL._TILE_SIZE.items():
+        runs = FL._takes_runs(name, S)
+        assert runs == (size <= 4 and chunk == 128)
+        for R in (8, 16):
+            want = FL.strip_width(R, S.critical_path, S.n_tasks, tile * size,
+                                  lambda rb: 132, S.run_path * runs,
+                                  S.run_tasks * runs)
+            assert FL.launch_strip(name, S, R, "cpu", grid=132) == want
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+def test_deep_runs_span_batches(pad):
+    """The card tests' deep plan: two runs of ~300 tasks, each flag batch
+    after the first waiting on flags outside its run (more than warp 0
+    reads ahead once padded with redundant dependencies); the padding keeps
+    the runs, units and path, and the plain executor's bits, in float32
+    and with bfloat16 tiles."""
+    make, cfg = DEEP
+    F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
+        dtype="float32", **cfg), device="cpu")
+    S0 = F._ldiv_sched
+    S = padded_waits(S0, pad)
+    assert S.runs == S0.runs and len(S.runs) == 2
+    assert S.unit_ptr.tolist() == S0.unit_ptr.tolist()
+    assert S.critical_path == S0.critical_path
+    assert all(t1 - t0 + 1 > 2 * RUN_BATCH for t0, t1 in S.runs)
+    waits = batch_waits(S)
+    assert all(w > 0 for run in waits for w in run)
+    assert (max(max(run) for run in waits) > READ_AHEAD) == (pad > 0)
+    b = torch.as_tensor(np.random.default_rng(1).standard_normal((F.n, 3)),
+                        dtype=torch.float32)
+    for L, U in ((F.ldata.tiles_t, F.udata.tiles_t),
+                 (F.ldata.tiles_t.bfloat16(), F.udata.tiles_t.bfloat16())):
+        assert torch.equal(FL.fused_ldiv_plain(b, S, L, U, F._rs),
+                           FL.fused_ldiv_plain(b, S0, L, U, F._rs))
+
+
+def _run_path_brute(n, deps, in_run):
+    """Of the longest paths, the fewest run tasks: every path enumerated
+    from each task back."""
+    memo = {}
+
+    def paths(t):  # (length, -run tasks) of each path ending at t
+        if t not in memo:
+            here = (1, -int(in_run[t]))
+            memo[t] = {here} | {(a + 1, r + here[1]) for d in deps[t]
+                                for a, r in paths(d)}
+        return memo[t]
+
+    best = max((p for t in range(n) for p in paths(t)), default=(0, 0))
+    return -best[1]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_run_path_is_the_dearest_longest_path(seed):
+    """On random task graphs with random tasks marked as run tasks, the
+    one pass equals a brute force over every path."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 60))
+    deps = [sorted(np.flatnonzero(rng.random(t) < 0.1).tolist())
+            for t in range(n)]
+    dep_ptr = np.concatenate([[0], np.cumsum([len(d) for d in deps])])
+    dep = np.asarray([x for d in deps for x in d], dtype=np.int64)
+    in_run = rng.random(n) < 0.5
+    assert FL.run_path(dep_ptr, dep, in_run) == _run_path_brute(n, deps,
+                                                                in_run)
+
+
+def test_strip_rule_costs_run_steps():
+    """With every path task inside runs the rule costs the chain at
+    RUN_TASK_US; without runs it is the rule of TASK_US alone."""
+    tile, G = 128 * 128 * 4, (lambda rb: 132)
+    for cp, n_tasks, tiles, R in ((3200, 4799, 3198, 16), (116, 173, 114, 8)):
+        no_runs = FL.strip_width(R, cp, n_tasks, tiles * tile, G)
+        assert no_runs == FL.strip_width(R, cp, n_tasks, tiles * tile, G,
+                                         0, 0) == 1
+        assert FL.strip_width(R, cp, n_tasks, tiles * tile, G, cp - 2,
+                              tiles) == 1
+    # a path all in runs on a card of one block: the fewest tickets win
+    assert FL.strip_width(16, 3200, 4799, 3198 * tile, lambda rb: 1, 3198,
+                          3198) == max(FL.TASK_US)
+    assert set(FL.RUN_TASK_US) == set(FL.TASK_US)
+    assert all(FL.RUN_TASK_US[w] < FL.TASK_US[w] for w in FL.TASK_US)

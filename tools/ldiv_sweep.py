@@ -28,8 +28,9 @@ with the bfloat16 tile stream, at each R of ``--rs``, it records:
 width (``fused_ldiv(..., strip=)``), eager and by graph replay, in turns
 forwards then backwards, holds every width bit for bit to the 16-column
 one, and prints each launch's time over the schedule's critical path (the
-time of one dependent task, ``fused_ldiv.TASK_US``) beside the width the
-wrapper's rule picks.
+time of one dependent task, ``fused_ldiv.TASK_US``; on a plan whose path
+lies mostly in runs, the time of a run's step, ``fused_ldiv.RUN_TASK_US``)
+beside the width the wrapper's rule picks.
 
 ``--tree NAME=PATH`` runs the same measurements on another checkout of
 the repository (``PATH`` holds ``tpu_sparse_lu_torch/``), each in a
@@ -48,9 +49,10 @@ shipped source, forwards then backwards. ``--clocks`` adds a copy of the
 shipped source with ``%globaltimer`` stamps patched in at fixed places
 (``CLOCK_PATCH``; the shipped kernel carries none) and prints, for one
 float32 solve at R = 16, the mean of each ticket's wait, load, products,
-reduction and publish times by task kind, the critical chain step by
-step, and the SMs' busy share, at the width the wrapper's rule picks
-(and at every width of ``--strip``).
+reduction and publish times by task kind, a run's step split into its
+ring wait, products, reduction and stores and publish, the critical
+chain step by step, and the SMs' busy share, at the width the wrapper's
+rule picks (and at every width of ``--strip``).
 """
 
 import argparse
@@ -253,9 +255,12 @@ def _kind(flags):
 
 
 # the clocks copy of ldiv_fused.cu: (anchor, what goes before it, what
-# goes after it); each anchor must occur once. Per ticket, thread 0 stamps
-# the SM, then the %globaltimer ns at start, dependencies met, first
-# operands staged, products done, results stored, flag published;
+# goes after it); each anchor must occur once. Per task and strip (its
+# ready flag's index), thread 0 stamps the SM, then the %globaltimer ns at
+# start, dependencies met, first operands staged, products done, results
+# stored, flag published; a task inside a run at its step's start, its
+# loads issued, ring waited (tile and strip in), products done, stored,
+# and the end of the step (after the batch's flags where it ends one);
 # ldiv_fused_clocks copies them out.
 CLOCK_PATCH = (
     ("using flag_ref = cuda::atomic_ref<int, cuda::thread_scope_device>;\n",
@@ -263,7 +268,7 @@ CLOCK_PATCH = (
 constexpr int kClockTickets = 1 << 16;
 constexpr int kClockSlots = 7;
 __device__ unsigned long long g_clocks[kClockTickets][kClockSlots];
-__device__ int g_clock_ticket[1 << 12];  // each block's current ticket
+__shared__ int s_clock_ticket;  // the block's current task and strip
 
 __device__ __forceinline__ unsigned long long sm_id() {
   unsigned int id;
@@ -277,25 +282,41 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-#define CLOCK(slot, v)                                                \\
-  if (threadIdx.x == 0 && g_clock_ticket[blockIdx.x] < kClockTickets) \\
-  g_clocks[g_clock_ticket[blockIdx.x]][slot] = (v)
+#define CLOCK(slot, v)                                      \\
+  if (threadIdx.x == 0 && s_clock_ticket < kClockTickets) \\
+  g_clocks[s_clock_ticket][slot] = (v)
 """),
-    ("    if (ticket >= n_tickets) break;\n", "",
-     "    if (threadIdx.x == 0) g_clock_ticket[blockIdx.x] = ticket;\n"
-     "    CLOCK(0, sm_id());\n    CLOCK(1, global_ns());\n"),
+    ("    const int t_end = unit_ptr[unit + 1];\n", "",
+     "    if (threadIdx.x == 0) s_clock_ticket = t * strips + strip;"
+     "\n    CLOCK(0, sm_id());\n    CLOCK(1, global_ns());\n"),
     ("    // 3. the task\n", "    CLOCK(2, global_ns());\n", ""),
-    ("#pragma unroll 2\n", "    if (e == e0) CLOCK(3, global_ns());\n", ""),
+    ("    tile_product<T, TT, RB>(acc, ts, xs, cs);\n",
+     "    if (e == e0) CLOCK(3, global_ns());\n", ""),
     ("  // deterministic cross-warp reduction", "  CLOCK(4, global_ns());\n",
      ""),
-    ("      xd[(int64_t)i * R + j0 + j] = old[u] + sum;\n    }\n  }\n", "",
-     "  CLOCK(5, global_ns());\n"),
+    ("      xd[(int64_t)i * R + j0 + j] = old[u] + warp_sum<T, RB>(ps, i, j, cs);"
+     "\n  }\n", "", "  CLOCK(5, global_ns());\n"),
     ("      const bool in = kind == kPermIn;\n", "",
      "      CLOCK(3, global_ns());\n      CLOCK(4, global_ns());\n"),
     ("          y[row * R + j0 + j] = val;\n        }\n      }\n", "",
      "      CLOCK(5, global_ns());\n"),
-    ("      flag_ref(done[ticket]).store(gen, cuda::memory_order_release);\n",
-     "", "    CLOCK(6, global_ns());\n"),
+    ("      flag_ref(done[t * strips + strip]).store(gen,\n"
+     "                                               cuda::memory_order_release);"
+     "\n", "", "    CLOCK(6, global_ns());\n"),
+    ("    const int4 m = q[0];\n", "",
+     "    if (threadIdx.x == 0)\n"
+     "      s_clock_ticket = (t0 + i) * strips + strip;\n"
+     "    CLOCK(0, sm_id());\n    CLOCK(1, global_ns());\n"),
+    ("    wait_bar(smem_u32(ring + i % NB)", "    CLOCK(2, global_ns());\n",
+     ""),
+    ("    __syncthreads();  // the tile and the strip are in\n", "",
+     "    CLOCK(3, global_ns());\n"),
+    ("    tile_product<T, TT, RB>(acc, buf(i), xs, cs);\n", "",
+     "    CLOCK(4, global_ns());\n"),
+    ("    if (i + 1 == n || (i + 1) % kRunBatch == 0) {\n",
+     "    CLOCK(5, global_ns());\n", ""),
+    ("#pragma unroll\n    for (int k = 0; k < NB + 1; ++k) q[k] = q[k + 1];\n",
+     "    CLOCK(6, global_ns());\n", ""),
     ("LDIV_FUSED_ENTRY(bf16, float, __nv_bfloat16, void)\n", "", """
 int ldiv_fused_clocks(void* host, int n) {
   if (n > kClockTickets) n = kClockTickets;
@@ -379,6 +400,7 @@ def _use(side):
 
     FL._lib = lambda L=_Side(side): L
     FL._CAPACITY.clear()
+    FL._TAKES_RUNS.clear()
 
 
 def _clocks(cs_mod, F, lib, b, strip):
@@ -421,13 +443,34 @@ def _clocks(cs_mod, F, lib, b, strip):
           f"(wait for dependencies, load after them, products (later "
           f"entries' tiles included), reduction and stores, publish):",
           flush=True)
+    # a run's tasks after its first: step = start -> start of the next
+    later = np.zeros(S.n_tasks, dtype=bool)
+    for r0, r1 in getattr(S, "runs", ()):
+        later[r0 + 1:r1 + 1] = True
+    later = np.repeat(later, strips)
     for k, name in enumerate(KINDS):
-        m = kinds == k
+        m = (kinds == k) & ~later
         if m.any():
             print(f"[clocks]   {name} x{int(m.sum())}: " + ", ".join(
                 f"{(hi - lo)[m].mean() / 1e3:.2f}" for lo, hi in (
                     (t1, t2), (t2, t3), (t3, t_prod), (t_prod, t_store),
                     (t_store, t4))), flush=True)
+    if later.any():
+        step = t4 - t1
+        print(f"[clocks]   inside runs x{int(later.sum())}, mean us a step "
+              f"{step[later].mean() / 1e3:.3f} (median "
+              f"{np.median(step[later]) / 1e3:.3f}): issues "
+              f"{(t2 - t1)[later].mean() / 1e3:.3f}, ring wait and barrier "
+              f"{(t3 - t2)[later].mean() / 1e3:.3f}, products "
+              f"{(t_prod - t3)[later].mean() / 1e3:.3f}, reduction and "
+              f"stores {(t_store - t_prod)[later].mean() / 1e3:.3f}, "
+              f"publish {(t4 - t_store)[later].mean() / 1e3:.3f}", flush=True)
+        for r0, r1 in S.runs:
+            for col in range(min(strips, 2)):
+                a, z = r0 * strips + col, r1 * strips + col
+                print(f"[clocks]   run {r0}..{r1} strip {col}: "
+                      f"{(t4[z] - t1[a]) / 1e3:.2f} us over {r1 - r0 + 1} "
+                      f"tasks on SM {sm[a]}", flush=True)
     busy = (t4 - t2).sum()
     print(f"[clocks] SM busy share (load + compute over span x {SMS} SMs): "
           f"{busy / (span * SMS):.3f}; blocks resident "
@@ -518,6 +561,7 @@ def _versions_run(cs_mod, args, rng):
     finally:
         FL._lib = own
         FL._CAPACITY.clear()
+        FL._TAKES_RUNS.clear()
     print(f"[versions] ms per {args.deployment} solve on {_smi()}, eager / "
           f"graph replay, forwards and backwards:", flush=True)
     for (name, dtype, stream, R), t in times.items():
@@ -533,6 +577,8 @@ def _strips_run(cs_mod, args, rng):
     """--strip: one launch at each width on the deployment's schedule,
     held bit for bit to the 16-column width and timed in turns."""
     import torch
+
+    from tpu_sparse_lu_torch.ops import fused_ldiv as FL
 
     widths = _widths(args)
     Rs = [int(r) for r in args.rs.split(",")]
@@ -558,20 +604,31 @@ def _strips_run(cs_mod, args, rng):
                         m(lambda _: _fused(F, b, w), reps=20),
                         g(lambda: _fused(F, b, w), reps=20)))
             chosen = _chosen_strip(F, R)
+            # a run's step, on a path that lies mostly in runs: the path's
+            # time less its other tasks at TASK_US
+            run_path = getattr(S, "run_path", 0)
+            if 2 * run_path < S.critical_path:
+                run_path = 0
+            units = getattr(S, "n_units", S.n_tasks)
             for w, t in times.items():
                 graph = sorted(x for _, x in t)[len(t) // 2]
+                run_us = ((graph * 1e3 - (S.critical_path - run_path)
+                           * FL.TASK_US[w]) / run_path if run_path else None)
                 rows.append(dict(deployment=args.deployment, dtype=dtype,
                                  stream=stream, R=R, strip=w,
                                  chosen=w == chosen, times=t,
                                  critical_path=S.critical_path,
+                                 run_path=run_path, run_step_us=run_us,
                                  n_tasks=S.n_tasks))
                 print(f"[strip] {args.deployment} {dtype}/{stream} R={R} "
                       f"strip {w}{' (chosen)' if w == chosen else ''}: "
-                      f"{S.n_tasks * -(-R // w)} tickets; eager / graph ms "
+                      f"{units * -(-R // w)} tickets; eager / graph ms "
                       + ", ".join(f"{e:.4f} / {x:.4f}" for e, x in t)
                       + f"; graph us a task on the critical path of "
-                      f"{S.critical_path}: {graph * 1e3 / S.critical_path:.3f}",
-                      flush=True)
+                      f"{S.critical_path}: {graph * 1e3 / S.critical_path:.3f}"
+                      + (f"; us a run step ({run_path} of the path's tasks "
+                         f"in runs, the rest at TASK_US): {run_us:.3f}"
+                         if run_path else ""), flush=True)
         del F
         torch.cuda.empty_cache()
     print(f"[strip] bit for bit at every width; card {_smi()}", flush=True)

@@ -111,10 +111,13 @@ def bind_fused_ldiv(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for dt in ("f32", "f64", "bf16"):
         f = getattr(lib, f"ldiv_fused_{dt}")
-        f.argtypes = [P] * 14 + [I, L, I, I, I, I, P]
+        f.argtypes = [P] * 16 + [I, L, I, I, I, I, P]
         f.restype = I
         f = getattr(lib, f"ldiv_fused_{dt}_capacity")
         f.argtypes = [I, I]
+        f.restype = I
+        f = getattr(lib, f"ldiv_fused_{dt}_takes_runs")
+        f.argtypes = []
         f.restype = I
     return lib
 

@@ -56,6 +56,7 @@ __all__ = [
     "Wave",
     "build_ldiv_schedule",
     "build_waves",
+    "find_runs",
     "fused_ldiv",
     "fused_ldiv_bf16",
     "fused_ldiv_plain",
@@ -329,6 +330,11 @@ def _device(device) -> torch.device:
 # banded_1600x64 plan, 3,200 dependent tasks, R = 16 (7.31, 9.27, 11.42,
 # 15.00 ms; tools/ldiv_sweep.py --strip; H100 80GB HBM3, 700 W)
 TASK_US = {1: 2.287, 4: 2.899, 8: 3.572, 16: 4.691}
+# the time of one step of a run (a chain of one-tile tasks that one block
+# walks, LdivSchedule.runs) at each width, µs: the same launch with its two
+# runs, 3,198 of the path's 3,200 tasks (3.68, 5.47, 7.78, 11.42 ms; the
+# two tasks outside them at TASK_US; same tool and card)
+RUN_TASK_US = {1: 1.149, 4: 1.710, 8: 2.432, 16: 3.570}
 # the rate at which the card's blocks together stage tiles into shared
 # memory when strips are many: every ticket stages its task's tiles, so a
 # launch stages them once per strip. 16 strips of the 2D Poisson 100x100
@@ -337,24 +343,30 @@ STAGE_BYTES_PER_US = 1.33e6
 
 
 def strip_width(R: int, critical_path: int, n_tasks: int, tile_bytes: int,
-                grid) -> int:
+                grid, run_path: int = 0, run_tasks: int = 0) -> int:
     """Columns of R one ticket covers: the width in :data:`TASK_US` that
-    minimises the launch's time as the longest of its chain,
-    ``critical_path × t(RB)``, its tickets spread over the resident
-    blocks, ``n_tasks × ⌈R/RB⌉ × t(RB) / grid(RB)``, and its tiles staged
-    once per strip, ``⌈R/RB⌉ × tile_bytes`` at :data:`STAGE_BYTES_PER_US`;
-    the widest on a tie, and 1 at R = 1. A chain of dependent tasks goes
-    narrow, each strip a chain of its own on its own SM; a schedule with
-    many tasks or tiles and a short path keeps wider strips.
-    ``tile_bytes`` — the bytes of the tiles the schedule's tasks read,
-    each once; ``grid(rb)`` — the blocks of a launch at width ``rb``. Any
+    minimises the launch's time as the longest of its chain, its tickets
+    spread over the resident blocks, and its tiles staged once per strip,
+    ``⌈R/RB⌉ × tile_bytes`` at :data:`STAGE_BYTES_PER_US`; the widest on a
+    tie, and 1 at R = 1. A task costs ``t(RB)`` (:data:`TASK_US`), a task
+    inside a run ``r(RB)`` (:data:`RUN_TASK_US`): the chain is
+    ``run_path × r(RB) + (critical_path − run_path) × t(RB)``, the tickets
+    ``⌈R/RB⌉ × (run_tasks × r(RB) + (n_tasks − run_tasks) × t(RB)) /
+    grid(RB)``. A chain of dependent tasks goes narrow, each strip a chain
+    of its own on its own SM; a schedule with many tasks or tiles and a
+    short path keeps wider strips. ``tile_bytes`` — the bytes of the tiles
+    the schedule's tasks read, each once; ``grid(rb)`` — the blocks of a
+    launch at width ``rb``; ``run_path``, ``run_tasks`` — the tasks inside
+    runs on the critical path and in all (:class:`LdivSchedule`). Any
     width gives the same bits."""
     if R == 1:
         return 1
 
     def cost(rb):
-        t, strips = TASK_US[rb], -(-R // rb)
-        return max(critical_path * t, n_tasks * strips * t / grid(rb),
+        t, r, strips = TASK_US[rb], RUN_TASK_US[rb], -(-R // rb)
+        chain = run_path * r + (critical_path - run_path) * t
+        work = run_tasks * r + (n_tasks - run_tasks) * t
+        return max(chain, strips * work / grid(rb),
                    strips * tile_bytes / STAGE_BYTES_PER_US)
 
     return min(sorted(TASK_US, reverse=True), key=cost)
@@ -370,6 +382,59 @@ def critical_path(dep_ptr: np.ndarray, dep: np.ndarray) -> int:
         depth.append(1 + max((depth[d] for d in dep[ptr[t]:ptr[t + 1]]),
                              default=0))
     return max(depth, default=0)
+
+
+def _one_tile(task: np.ndarray) -> np.ndarray:
+    """Per task, whether it is a wave task of exactly one entry."""
+    return (((task[:, 0] & KIND_MASK) == WAVE)
+            & (task[:, 3] - task[:, 2] == 1))
+
+
+def find_runs(task: np.ndarray, dep_ptr: np.ndarray, dep: np.ndarray,
+              ent_tile: np.ndarray, ent_src: np.ndarray):
+    """The runs of a task list, as ``(t0, t1)`` pairs (both included), in
+    ticket order: maximal sequences of at least two consecutive one-tile
+    wave tasks (one entry each) where every task after ``t0`` reads the
+    block the task before it wrote (its entry's source), accumulates into
+    another block, and depends on the task before it and on no other task
+    at or after ``t0``. One block walks a run in order
+    (csrc/ldiv_fused.cu), so a task of it needs no flag from the one before
+    and finds its source in shared memory. Greedy from the left: a run
+    ends where the next task cannot join it."""
+    ok = _one_tile(task).tolist()
+    flags, dst, e0 = task[:, 0].tolist(), task[:, 1].tolist(), task[:, 2]
+    src = np.where(ok, ent_src[np.where(ok, e0, 0)], -1).tolist()
+    ptr, dep = dep_ptr.tolist(), dep.tolist()
+
+    def joins(t0, t):  # task t after t - 1 in a run from t0
+        deps = dep[ptr[t]:ptr[t + 1]]
+        return (ok[t - 1] and ok[t] and src[t] == dst[t - 1]
+                and not (flags[t] & ACCUMULATE and dst[t] == dst[t - 1])
+                and t - 1 in deps and all(d < t0 or d == t - 1 for d in deps))
+
+    runs, t, n = [], 0, len(ok)
+    while t < n:
+        t0 = t
+        while t + 1 < n and joins(t0, t + 1):
+            t += 1
+        if t > t0:
+            runs.append((t0, t))
+        t += 1
+    return runs
+
+
+def run_path(dep_ptr: np.ndarray, dep: np.ndarray, in_run) -> int:
+    """Tasks inside runs (``in_run[t]``) on the longest dependency path:
+    of the paths with the most tasks, the one with the fewest such tasks
+    (the dearest where a run task costs less), one pass in ticket order."""
+    ptr, dep = dep_ptr.tolist(), dep.tolist()
+    best = []  # per task: (tasks on its longest path, of them not in runs)
+    for t in range(len(ptr) - 1):
+        n, other = max((best[d] for d in dep[ptr[t]:ptr[t + 1]]),
+                       default=(0, 0))
+        best.append((n + 1, other + (not in_run[t])))
+    n, other = max(best, default=(0, 0))
+    return n - other
 
 
 @dataclasses.dataclass
@@ -390,7 +455,21 @@ class LdivSchedule:
     carrier block. ``critical_path`` is the number of tasks on the longest
     path through them. Each task runs once per strip of :func:`strip_width`
     columns, and a strip waits only for the same strip of its
-    dependencies: ticket ``t * strips + strip``.
+    dependencies: its ready flag is ``t * strips + strip``.
+
+    ``runs`` (:func:`find_runs`): chains of one-tile tasks that one block
+    walks as one ticket, the carrier block kept in shared memory from one
+    task to the next; ``run_tasks`` counts their tasks, ``run_path`` those
+    on the critical path (:func:`run_path`). The kernel's tickets are the
+    units ``unit_ptr[u]:unit_ptr[u+1]`` of the task list, a run or a single
+    task (ticket ``u * strips + strip``; without runs the tasks
+    themselves), and a unit polls the flags ``wait[wait_ptr[t]:
+    wait_ptr[t+1]]`` of each of its tasks: its dependencies, less the task
+    before it in its run. ``meta[t]`` is ``(flags, dst, tile, src)`` of a
+    one-tile task (``tile = src = -1`` otherwise): a run's prefetch reads
+    it in one 16-byte load, where reading ``task`` and then the entry's
+    tile and source made ``banded_1600x64``'s launch 3.78 ms against 3.67
+    (R = 16, 1 column, float32, in turns; H100 80GB HBM3, 700 W).
 
     Host arrays are NumPy int32; :meth:`on` gives them on a device.
     :meth:`state` holds the kernel's counters and ready flags, one set per
@@ -412,6 +491,31 @@ class LdivSchedule:
     def __post_init__(self):
         self.device = _device(self.device)
         self.critical_path = critical_path(self.dep_ptr, self.dep)
+        self.runs = find_runs(self.task, self.dep_ptr, self.dep,
+                              self.ent_tile, self.ent_src)
+        follows = np.zeros(self.n_tasks, dtype=bool)  # in a run, not first
+        for t0, t1 in self.runs:
+            follows[t0 + 1:t1 + 1] = True
+        in_run = follows.copy()
+        in_run[[t0 for t0, _ in self.runs]] = True
+        self.run_tasks = int(in_run.sum())
+        self.run_path = run_path(self.dep_ptr, self.dep, in_run)
+        self.unit_ptr = np.flatnonzero(np.append(~follows, True)).astype(
+            np.int32)
+        # what each task's unit polls for it: its dependencies, less the
+        # task before it where one block runs both
+        owner = np.repeat(np.arange(self.n_tasks), np.diff(self.dep_ptr))
+        keep = ~(follows[owner] & (self.dep == owner - 1))
+        self.wait = np.ascontiguousarray(self.dep[keep])
+        self.wait_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(owner[keep],
+                                        minlength=self.n_tasks))]
+        ).astype(np.int32)
+        self.meta = np.full((self.n_tasks, 4), -1, dtype=np.int32)
+        self.meta[:, :2] = self.task[:, :2]
+        one = _one_tile(self.task)
+        self.meta[one, 2] = self.ent_tile[self.task[one, 2]]
+        self.meta[one, 3] = self.ent_src[self.task[one, 2]]
         self._on = {}
         self._state = {}
         self._strip = {}  # (kernel, device, R, grid) -> strip width
@@ -427,27 +531,36 @@ class LdivSchedule:
     def n_tasks(self) -> int:
         return self.task.shape[0]
 
+    @property
+    def n_units(self) -> int:
+        return self.unit_ptr.shape[0] - 1
+
     def on(self, device) -> dict:
-        """The index arrays as int32 tensors on ``device`` (kept)."""
+        """The index arrays as int32 tensors on ``device`` (kept);
+        ``task_ptr`` makes every task a unit of its own (a launch that
+        takes no run polls ``dep``)."""
         dev = _device(device)
         if dev not in self._on:
+            arrays = {k: getattr(self, k)
+                      for k in ("task", "meta", "unit_ptr", "wait_ptr", "wait",
+                                "dep_ptr", "dep", "ent_tile", "ent_src",
+                                "pidx", "qidx")}
+            arrays["task_ptr"] = np.arange(self.n_tasks + 1, dtype=np.int32)
             self._on[dev] = {
-                k: torch.as_tensor(np.ascontiguousarray(getattr(self, k)),
-                                   device=dev)
-                for k in ("task", "dep_ptr", "dep", "ent_tile", "ent_src",
-                          "pidx", "qidx")}
+                k: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                for k, a in arrays.items()}
         return self._on[dev]
 
-    def state(self, n_tickets: int, device, stream: int = 0) -> torch.Tensor:
-        """The kernel's int32 words for ``n_tickets`` tickets on the raw
-        CUDA stream ``stream``, made once and then left to the kernel:
-        ticket counter, exit counter, generation (starts at 1), then one
-        ready flag per ticket (start at 0, so a fresh state never reads as
-        done). Launches on one stream run one after another, so each
-        stream's words serve one launch at a time."""
-        key = (n_tickets, _device(device), stream)
+    def state(self, n_flags: int, device, stream: int = 0) -> torch.Tensor:
+        """The kernel's int32 words for ``n_flags`` ready flags (one per
+        task and strip) on the raw CUDA stream ``stream``, made once and
+        then left to the kernel: ticket counter, exit counter, generation
+        (starts at 1), then the flags (start at 0, so a fresh state never
+        reads as done). Launches on one stream run one after another, so
+        each stream's words serve one launch at a time."""
+        key = (n_flags, _device(device), stream)
         if key not in self._state:
-            s = torch.zeros(3 + n_tickets, dtype=torch.int32, device=device)
+            s = torch.zeros(3 + n_flags, dtype=torch.int32, device=device)
             s[2] = 1
             self._state[key] = s
         return self._state[key]
@@ -587,6 +700,22 @@ def _capacity(name: str, device, cs: int, rb: int) -> int:
 
 # bytes of a tile element of each kernel's banks
 _TILE_SIZE = {"ldiv_fused_f32": 4, "ldiv_fused_f64": 8, "ldiv_fused_bf16": 2}
+# kernel name -> whether it takes runs (ldiv_fused_*_takes_runs)
+_TAKES_RUNS = {}
+
+
+def _takes_runs(name: str, sched: LdivSchedule) -> bool:
+    """Whether a launch of kernel ``name`` walks the runs of ``sched``:
+    the plan has some, the kernel's ring holds two tiles at every width
+    (csrc/ldiv_fused.cu ``takes_runs``: not float64, whose 128 KB tile
+    leaves room for one) and a tile is whole 16-byte pieces, which the
+    ring's bulk copy needs (not so at an odd ``cs`` in float32). Otherwise
+    every task is a ticket of its own."""
+    if not sched.runs or sched.cs ** 2 * _TILE_SIZE[name] % 16:
+        return False
+    if name not in _TAKES_RUNS:
+        _TAKES_RUNS[name] = bool(getattr(_lib(), f"{name}_takes_runs")())
+    return _TAKES_RUNS[name]
 
 
 def launch_strip(name: str, sched: LdivSchedule, R: int, device,
@@ -600,16 +729,18 @@ def launch_strip(name: str, sched: LdivSchedule, R: int, device,
         blocks = ((lambda w: grid) if grid is not None else
                   lambda w: _capacity(name, device, sched.cs, w))
         tile_bytes = sched.ent_tile.size * sched.cs ** 2 * _TILE_SIZE[name]
+        runs = _takes_runs(name, sched)
         rb = sched._strip[key] = strip_width(
-            R, sched.critical_path, sched.n_tasks, tile_bytes, blocks)
+            R, sched.critical_path, sched.n_tasks, tile_bytes, blocks,
+            sched.run_path * runs, sched.run_tasks * runs)
     return rb
 
 
 def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
                   lbank: torch.Tensor, ubank: torch.Tensor, rs: torch.Tensor,
                   grid: Optional[int], strip: Optional[int]):
-    """One launch; returns ``y`` and whether the rule chose a strip
-    narrower than ``min(R, 16)``."""
+    """One launch; returns ``y``, whether the rule chose a strip narrower
+    than ``min(R, 16)`` and whether the launch ran runs."""
     n, R = b.shape
     cs = sched.cs
     _require(b.dim() == 2 and b.is_contiguous() and n == sched.n,
@@ -628,24 +759,32 @@ def _launch_fused(name: str, b: torch.Tensor, sched: LdivSchedule,
         rb = launch_strip(name, sched, R, b.device, grid)
     _require(rb in TASK_US, f"strip must be one of {sorted(TASK_US)}, "
              f"got {rb}")
-    n_tickets = sched.n_tasks * -(-R // rb)
+    strips = -(-R // rb)
+    runs = (_takes_runs(name, sched) and lbank.data_ptr() % 16 == 0
+            and ubank.data_ptr() % 16 == 0)
+    n_units = sched.n_units if runs else sched.n_tasks
+    n_tickets = n_units * strips
     if grid is None:
         grid = _capacity(name, b.device, cs, rb)
     grid = max(1, min(int(grid), n_tickets))
     stream = _stream(b)
-    state = sched.state(n_tickets, b.device, stream)
+    state = sched.state(sched.n_tasks * strips, b.device, stream)
     x = torch.empty((sched.K + 1, cs, R), dtype=b.dtype, device=b.device)
     y = torch.empty((n, R), dtype=b.dtype, device=b.device)
     i = sched.on(b.device)
+    unit_ptr, wait_ptr, wait = ((i["unit_ptr"], i["wait_ptr"], i["wait"])
+                                if runs else
+                                (i["task_ptr"], i["dep_ptr"], i["dep"]))
     rc = getattr(_lib(), name)(
         y.data_ptr(), x.data_ptr(), b.data_ptr(), rs.data_ptr(),
         lbank.data_ptr(), ubank.data_ptr(), i["task"].data_ptr(),
-        i["dep_ptr"].data_ptr(), i["dep"].data_ptr(),
+        i["meta"].data_ptr(), unit_ptr.data_ptr(), wait_ptr.data_ptr(),
+        wait.data_ptr(),
         i["ent_tile"].data_ptr(), i["ent_src"].data_ptr(),
         i["pidx"].data_ptr(), i["qidx"].data_ptr(), state.data_ptr(),
-        sched.n_tasks, n, cs, R, rb, grid, stream)
+        n_units, n, cs, R, rb, grid, stream)
     _check(rc, name)
-    return y, strip is None and rb < min(R, 16)
+    return y, strip is None and rb < min(R, 16), runs
 
 
 def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
@@ -673,7 +812,8 @@ def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
     schedule, R and grid); any width gives the same bits. A CPU tensor
     runs :func:`fused_ldiv_plain`. ``LAUNCHES`` counts the launches,
     ``NARROW_LAUNCHES`` those where the rule chose a strip narrower than
-    ``min(R, 16)``.
+    ``min(R, 16)``, ``RUN_LAUNCHES`` those that ran runs (``sched.runs``;
+    float64 launches take none, see ``_takes_runs``).
     """
     if _device_kind(b, lbank, ubank, rs) == "cpu":
         return fused_ldiv_plain(b, sched, lbank, ubank, rs)
@@ -681,15 +821,17 @@ def fused_ldiv(b: torch.Tensor, sched: LdivSchedule, lbank: torch.Tensor,
     _require(lbank.dtype == ubank.dtype == b.dtype, f"banks of "
              f"{lbank.dtype}/{ubank.dtype} for {b.dtype} (bfloat16 banks: "
              f"fused_ldiv_bf16)")
-    y, narrow = _launch_fused(f"ldiv_fused_{_KERNEL_DTYPES[b.dtype]}", b,
-                              sched, lbank, ubank, rs, grid, strip)
+    y, narrow, runs = _launch_fused(f"ldiv_fused_{_KERNEL_DTYPES[b.dtype]}",
+                                    b, sched, lbank, ubank, rs, grid, strip)
     fused_ldiv.LAUNCHES += 1
     fused_ldiv.NARROW_LAUNCHES += narrow
+    fused_ldiv.RUN_LAUNCHES += runs
     return y
 
 
 fused_ldiv.LAUNCHES = 0
 fused_ldiv.NARROW_LAUNCHES = 0
+fused_ldiv.RUN_LAUNCHES = 0
 
 
 def fused_ldiv_bf16(b: torch.Tensor, sched: LdivSchedule,
@@ -705,12 +847,14 @@ def fused_ldiv_bf16(b: torch.Tensor, sched: LdivSchedule,
              f"{b.dtype}")
     if _device_kind(b, lbank, ubank, rs) == "cpu":
         return fused_ldiv_plain(b, sched, lbank, ubank, rs)
-    y, narrow = _launch_fused("ldiv_fused_bf16", b, sched, lbank, ubank, rs,
-                              grid, strip)
+    y, narrow, runs = _launch_fused("ldiv_fused_bf16", b, sched, lbank,
+                                    ubank, rs, grid, strip)
     fused_ldiv_bf16.LAUNCHES += 1
     fused_ldiv_bf16.NARROW_LAUNCHES += narrow
+    fused_ldiv_bf16.RUN_LAUNCHES += runs
     return y
 
 
 fused_ldiv_bf16.LAUNCHES = 0
 fused_ldiv_bf16.NARROW_LAUNCHES = 0
+fused_ldiv_bf16.RUN_LAUNCHES = 0
