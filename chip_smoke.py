@@ -405,17 +405,22 @@ def _headline_solver(dtype: str, stream_dtype: str = "float32"):
     return A, ParallelSparseLU(A, config=cfg, device="cuda")
 
 
+def _banks(F):
+    """F's two factor banks, L then U (``TriKernelData``)."""
+    return F._numeric.ldata, F._numeric.udata
+
+
 def _fused(F, b, grid=None):
     """One launch of the one-launch solve on F's schedule and tile stream
     (what ``F.ldiv`` runs), at a given grid size."""
     from tpu_sparse_lu_torch.ops.fused_ldiv import fused_ldiv, fused_ldiv_bf16
 
-    L, U = F.ldata, F.udata
+    N = F._numeric
+    L, U = N.ldata, N.udata
     if L.tiles_bf16 is not None:
-        return fused_ldiv_bf16(b, F._ldiv_sched, L.tiles_bf16, U.tiles_bf16,
-                               F._rs, grid=grid)
-    return fused_ldiv(b, F._ldiv_sched, L.tiles_t, U.tiles_t, F._rs,
-                      grid=grid)
+        return fused_ldiv_bf16(b, N.sched, L.tiles_bf16, U.tiles_bf16, N.rs,
+                               grid=grid)
+    return fused_ldiv(b, N.sched, L.tiles_t, U.tiles_t, N.rs, grid=grid)
 
 
 def _route32(F, b):
@@ -426,12 +431,11 @@ def _route32(F, b):
     from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather
     from tpu_sparse_lu_torch.solve import blocked_tri_solve
 
-    R = b.shape[1]
-    xw = perm_gather(b, F._pidx, F._rs).view(F.plan.lplan.K + 1, F.plan.cs,
-                                             R)
-    blocked_tri_solve(F.ldata, xw, stream=True)
-    blocked_tri_solve(F.udata, xw, stream=True)
-    return perm_gather(xw.view(-1, R), F._qidx)
+    R, N = b.shape[1], F._numeric
+    xw = perm_gather(b, N.pidx, N.rs).view(F.plan.lplan.K + 1, F.plan.cs, R)
+    blocked_tri_solve(N.ldata, xw, stream=True)
+    blocked_tri_solve(N.udata, xw, stream=True)
+    return perm_gather(xw.view(-1, R), N.qidx)
 
 
 def _fused_work(F, b):
@@ -439,7 +443,7 @@ def _fused_work(F, b):
     read and y written once, the carrier written and read once; 2 R FLOP
     per tile element."""
     banks = [d.tiles_t if d.tiles_bf16 is None else d.tiles_bf16
-             for d in (F.ldata, F.udata)]
+             for d in _banks(F)]
     carrier = (F.plan.lplan.K + 1) * F.plan.cs * b.shape[1] * b.element_size()
     return (_nbytes(*banks) + 2 * _nbytes(b) + 2 * carrier,
             2 * b.shape[1] * sum(t.numel() for t in banks))
@@ -532,26 +536,26 @@ def phase_kernels_vs_plain():
                         device="cuda")
     err = {"perm_gather": 0.0, "wave_apply": 0.0}
     rel_real = 0.0
-    xk = perm_gather(b, F._pidx, F._rs)
-    xp = perm_gather_plain(b, F._pidx, F._rs)
+    xk = perm_gather(b, F._numeric.pidx, F._numeric.rs)
+    xp = perm_gather_plain(b, F._numeric.pidx, F._numeric.rs)
     err["perm_gather"] = float((xk - xp).abs().max())
     rel_real = max(rel_real, _rel(xk, xp))
     x = xp.view(F.plan.lplan.K + 1, F.plan.cs, R)
-    for data in (F.ldata, F.udata):
+    for data in _banks(F):
         for w in data.waves:
             got = wave_apply(x.clone(), data.tiles_t, w)
             x = wave_apply_plain(x, data.tiles_t, w)
             err["wave_apply"] = max(err["wave_apply"],
                                     float((got - x).abs().max()))
             rel_real = max(rel_real, _rel(got, x))
-    yk = perm_gather(x.view(-1, R), F._qidx)
-    yp = perm_gather_plain(x.view(-1, R), F._qidx)
+    yk = perm_gather(x.view(-1, R), F._numeric.qidx)
+    yp = perm_gather_plain(x.view(-1, R), F._numeric.qidx)
     err["perm_gather"] = max(err["perm_gather"], float((yk - yp).abs().max()))
     rel_real = max(rel_real, _rel(yk, yp))
     if not rel_real <= TOL["float32"]:
         raise AssertionError(f"headline waves: kernel differs from plain "
                              f"{rel_real:.3e}")
-    n_waves = len(F.ldata.waves) + len(F.udata.waves)
+    n_waves = len(F._numeric.ldata.waves) + len(F._numeric.udata.waves)
     print(f"phase 2 kernels vs plain: max rel diff random f32 "
           f"{worst['float32']:.3e} (bound 1e-5), f64 {worst['float64']:.3e} "
           f"(bound 1e-12); headline {n_waves} waves + 2 perms f32 "
@@ -586,7 +590,7 @@ def _phase_fused_vs_route32():
                         f"{tag} R={R} grid={grid}: differs from the "
                         f"32-launch route by "
                         f"{float((got - ref).abs().max()):.3e}")
-            plain = F._direct_solve(b, plain=True)
+            plain = F._numeric.tiles(b, plain=True)
             r = _rel(got, plain)
             if not r <= TOL[dt]:
                 raise AssertionError(f"{tag} R={R}: differs from the plain "
@@ -654,7 +658,7 @@ def phase_main_path():
             raise AssertionError(f"backward error {e:.3e} >= {bar:g} at R={R} "
                                  f"refine_steps={steps}")
     # lsolve/rsolve run the waves; the 32-launch route is the yardstick
-    n_waves = len(F.ldata.waves) + len(F.udata.waves)
+    n_waves = len(F._numeric.ldata.waves) + len(F._numeric.udata.waves)
     bt = rng.random((F.n_factor, 4)).astype(np.float32)
     tri = {}
     for name, M, fn in (("lsolve", F.L, F.lsolve), ("rsolve", F.U, F.rsolve)):
@@ -677,8 +681,9 @@ def phase_main_path():
           f"nnz(L+U)={F.L.nnz + F.U.nnz} K={F.plan.lplan.K} "
           f"T={F.plan.lplan.T}/{F.plan.uplan.T} levels="
           f"{F.plan.lplan.num_levels}/{F.plan.uplan.num_levels}, built in "
-          f"{build_s:.2f} s; tasks {F._ldiv_sched.n_tasks}, dependencies "
-          f"{F._ldiv_sched.dep.size}; backward error R=16 {berr[16, 0]:.3e}, "
+          f"{build_s:.2f} s; tasks {F._numeric.sched.n_tasks}, "
+          f"dependencies {F._numeric.sched.dep.size}; backward error R=16 "
+          f"{berr[16, 0]:.3e}, "
           f"R=1 {berr[1, 0]:.3e}, R=64 {berr[64, 0]:.3e}, R=16 refined "
           f"{berr[16, 1]:.3e}, one ldiv_fused launch per solve and no wave; "
           f"lsolve {tri['lsolve']:.3e}, rsolve {tri['rsolve']:.3e} through "
@@ -728,7 +733,7 @@ def phase_timing(F, smi):
     R = HEADLINE["R"]
     b = torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype, device="cuda")
     shape = (F.plan.lplan.K + 1, F.plan.cs, R)
-    routes = {"ldiv_fused": lambda: F._direct_solve(b),
+    routes = {"ldiv_fused": lambda: F._numeric.tiles(b),
               "ldiv_route32": lambda: _route32(F, b)}
     turns = {k: [] for k in routes}
     for order in (list(routes), list(routes)[::-1]):  # in turns
@@ -741,26 +746,27 @@ def phase_timing(F, smi):
         ms[k + "_device"] = float(np.mean([g for _, g in t]))
     ms["ldiv"] = ms["ldiv_fused"]
     ms["ldiv_plain"] = ms["ldiv_fused_plain"] = _median_ms(
-        lambda _: F._direct_solve(b, plain=True))
+        lambda _: F._numeric.tiles(b, plain=True))
+    N = F._numeric
     for name, fn in (("perm_gather", perm_gather),
                      ("perm_gather_plain", perm_gather_plain)):
         # perm-in and perm-out of one solve
         ms[name] = _median_ms(
-            lambda _: fn(fn(b, F._pidx, F._rs), F._qidx))
-    x0 = perm_gather(b, F._pidx, F._rs).view(shape)
+            lambda _: fn(fn(b, N.pidx, N.rs), N.qidx))
+    x0 = perm_gather(b, N.pidx, N.rs).view(shape)
     for name, plain in (("wave_apply", False), ("wave_apply_plain", True)):
         # the L and U waves of one solve
         ms[name] = _median_ms(
             lambda x: blocked_tri_solve(
-                F.udata, blocked_tri_solve(F.ldata, x, plain=plain),
+                N.udata, blocked_tri_solve(N.ldata, x, plain=plain),
                 plain=plain),
             setup=x0.clone)
     x_bytes = x0.numel() * x0.element_size()
     WORK["perm_gather"] = (
-        _nbytes(b, F._pidx, F._rs) + x_bytes          # perm-in
-        + x_bytes + _nbytes(F._qidx) + _nbytes(b),    # perm-out
+        _nbytes(b, N.pidx, N.rs) + x_bytes          # perm-in
+        + x_bytes + _nbytes(N.qidx) + _nbytes(b),    # perm-out
         b.numel())
-    tiles = [d.tiles_t for d in (F.ldata, F.udata)]
+    tiles = [d.tiles_t for d in _banks(F)]
     WORK["wave_apply"] = (_nbytes(*tiles) + 2 * x_bytes,
                           2 * R * sum(t.numel() for t in tiles))
     WORK["ldiv_fused"] = _fused_work(F, b)
@@ -1836,11 +1842,11 @@ def phase_chain_and_bf16_kernels_vs_plain():
     chain = _bidiag_checks()
     # the real planes of config 1, float32, R = 1
     A, F = _config1_solver()
-    sp_ = F._scan_planes
+    sp_ = F._numeric.planes
     b = torch.as_tensor(rng.random((A.shape[0], 1)), dtype=torch.float32,
                         device="cuda")
-    got = F._chain_solve(b)
-    ref = F._chain_solve(b, plain=True)
+    got = F._numeric.solve(b)
+    ref = F._numeric.solve(b, plain=True)
     err = {"bidiag_ldiv": float((got - ref).abs().max())}
     rel_chain = _rel(got, ref)
     # both against the float64 scan of the same float32 planes: a chain of
@@ -1863,11 +1869,11 @@ def phase_chain_and_bf16_kernels_vs_plain():
     R = HEADLINE["R"]
     b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=torch.float32,
                         device="cuda")
-    x = perm_gather_plain(b, Fb._pidx, Fb._rs).view(
+    x = perm_gather_plain(b, Fb._numeric.pidx, Fb._numeric.rs).view(
         Fb.plan.lplan.K + 1, Fb.plan.cs, R)
     err["wave_apply_bf16"] = 0.0
     rel_bf = 0.0
-    for data in (Fb.ldata, Fb.udata):
+    for data in _banks(Fb):
         if data.tiles_bf16.dtype != torch.bfloat16:
             raise AssertionError(f"stream is {data.tiles_bf16.dtype}")
         for w in data.waves:
@@ -1885,7 +1891,7 @@ def phase_chain_and_bf16_kernels_vs_plain():
           f"max abs {err['bidiag_ldiv']:.3e}, vs the float64 scan kernel "
           f"{acc['kernel']:.3e} (bound {CHAIN_REAL_TOL:g}) plain "
           f"{acc['plain']:.3e}; headline "
-          f"bf16 stream {len(Fb.ldata.waves) + len(Fb.udata.waves)} waves "
+          f"bf16 stream {sum(len(d.waves) for d in _banks(Fb))} waves "
           f"{rel_bf:.3e} (bound 1e-5), max abs "
           f"{err['wave_apply_bf16']:.3e}")
     return err
@@ -1915,7 +1921,7 @@ def phase_config1():
     t0 = time.perf_counter()
     A, F = _config1_solver()
     build_s = time.perf_counter() - t0
-    if F._scan_bands is None or not F._scan_perm_id:
+    if not F._numeric.chain:
         raise AssertionError("config 1: bands or identity perms not "
                              "detected")
 
@@ -1946,7 +1952,7 @@ def phase_config1():
     launches = read()
     # float64 chain solver against scipy
     _, F64 = _config1_solver("float64", A)
-    if F64._scan_bands is None or not F64._scan_perm_id:
+    if not F64._numeric.chain:
         raise AssertionError("config 1 float64: chain not detected")
     b64 = rng.random((A.shape[0], 3))
     x64 = F64.ldiv(b64)
@@ -1960,14 +1966,14 @@ def phase_config1():
     A2 = A.copy()
     A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
     F.refactor(A2)
-    if F._scan_bands is None or not F._scan_perm_id:
+    if not F._numeric.chain:
         raise AssertionError("host refactor: bands not re-detected")
     e_ref = solve_checked(A2, "host refactor", 1)
     # device refactorization: the bands are stale and cleared
     A3 = A.copy()
     A3.data = A3.data * (1.0 + 0.1 * rng.random(A3.nnz))
     F.refactor_numeric(A3)
-    if F._scan_bands is not None or F._scan_perm_id:
+    if F._numeric.planes is not None or F._numeric.chain:
         raise AssertionError("refactor_numeric left the chain path on")
     e_num = solve_checked(A3, "refactor_numeric", 1, chain=False)
     if launches != {"bidiag_ldiv": 2, "wave_apply": 0, "perm_gather": 0}:
@@ -2028,7 +2034,7 @@ def phase_f64_tier():
     if launches != dict.fromkeys(names, 0) | {"ldiv_fused_bf16": want}:
         raise AssertionError(f"bf16 stream launches {launches}")
     # the 32-launch route, through wave_apply_bf16
-    n_waves = len(Fb.ldata.waves) + len(Fb.udata.waves)
+    n_waves = len(Fb._numeric.ldata.waves) + len(Fb._numeric.udata.waves)
     if not torch.equal(_route32(Fb, b32), x):
         raise AssertionError("the bf16 32-launch route differs from ldiv")
     torch.cuda.synchronize()
@@ -2044,7 +2050,7 @@ def phase_f64_tier():
     if bf_steps is None or not bf[2] < direct:
         raise AssertionError(f"bf16 stream + f64 sweeps: {bf} (direct "
                              f"{direct:.3e}) never meets 1e-12")
-    if Fb.ldata.tiles_t.dtype != torch.float32:
+    if Fb._numeric.ldata.tiles_t.dtype != torch.float32:
         raise AssertionError("the bank was quantized")
     # after a device refactorization: refine against the new matrix
     old = F.make_f64_ldiv()
@@ -2096,11 +2102,11 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     for R in (1, 16):
         b = torch.as_tensor(rng.random((F1.n, R)), dtype=torch.float32,
                             device="cuda")
-        ms[f"c1_chain_R{R}"] = _median_ms(lambda _: F1._chain_solve(b))
-        ms[f"c1_chain_R{R}_device"] = _graph_ms(lambda: F1._chain_solve(b))
+        ms[f"c1_chain_R{R}"] = _median_ms(lambda _: F1._numeric.solve(b))
+        ms[f"c1_chain_R{R}_device"] = _graph_ms(lambda: F1._numeric.solve(b))
         ms[f"c1_plain_R{R}"] = _median_ms(
-            lambda _: F1._chain_solve(b, plain=True), reps=20)
-        ms[f"c1_tile_R{R}"] = _median_ms(lambda _: F1._direct_solve(b),
+            lambda _: F1._numeric.solve(b, plain=True), reps=20)
+        ms[f"c1_tile_R{R}"] = _median_ms(lambda _: F1._numeric.tiles(b),
                                          reps=10, warmup=2)
         ms[f"c1_route32_R{R}"] = _median_ms(
             lambda _: _route32(F1, b), reps=5, warmup=1)
@@ -2132,24 +2138,25 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     b = torch.as_tensor(rng.random((A.shape[0], R)), dtype=torch.float32,
                         device="cuda")
     for key, Fx in (("f32", F), ("bf16", Fb)):
-        ms[f"ldiv_{key}"] = _median_ms(lambda _: Fx._direct_solve(b))
+        ms[f"ldiv_{key}"] = _median_ms(lambda _: Fx._numeric.tiles(b))
         ms[f"ldiv_{key}_route32"] = _median_ms(
             lambda _: _route32(Fx, b))
-        ms[f"ldiv_{key}_device"] = _graph_ms(lambda: Fx._direct_solve(b))
+        ms[f"ldiv_{key}_device"] = _graph_ms(lambda: Fx._numeric.tiles(b))
         ms[f"ldiv_{key}_route32_device"] = _graph_ms(
             lambda: _route32(Fx, b))
     ms["ldiv_fused_bf16"] = ms["ldiv_bf16"]
     ms["ldiv_fused_bf16_device"] = ms["ldiv_bf16_device"]
     ms["ldiv_fused_bf16_plain"] = _median_ms(
-        lambda _: Fb._direct_solve(b, plain=True), reps=20)
+        lambda _: Fb._numeric.tiles(b, plain=True), reps=20)
     WORK["ldiv_fused_bf16"] = _fused_work(Fb, b)
     shape = (Fb.plan.lplan.K + 1, Fb.plan.cs, R)
-    x0 = perm_gather(b, Fb._pidx, Fb._rs).view(shape)
+    Nb = Fb._numeric
+    x0 = perm_gather(b, Nb.pidx, Nb.rs).view(shape)
     for name, plain in (("wave_apply_bf16", False),
                         ("wave_apply_bf16_plain", True)):
         ms[name] = _median_ms(
             lambda x: blocked_tri_solve(
-                Fb.udata, blocked_tri_solve(Fb.ldata, x, plain=plain,
+                Nb.udata, blocked_tri_solve(Nb.ldata, x, plain=plain,
                                             stream=True),
                 plain=plain, stream=True),
             setup=x0.clone)
@@ -2159,16 +2166,16 @@ def phase_chain_bf16_timing(smi, f32_steps, bf_steps):
     ms["f64_f32"] = _median_ms(lambda _: sf(b64), reps=20)
     ms["f64_bf16"] = _median_ms(lambda _: sb(b64), reps=20)
     nbytes = {
-        "f32": sum(d.tiles_t.numel() * 4 for d in (F.ldata, F.udata)),
-        "bf16": sum(d.tiles_bf16.numel() * 2 for d in (Fb.ldata, Fb.udata)),
+        "f32": sum(d.tiles_t.numel() * 4 for d in _banks(F)),
+        "bf16": sum(d.tiles_bf16.numel() * 2 for d in _banks(Fb)),
     }
     WORK["wave_apply_bf16"] = (
         nbytes["bf16"] + 2 * _nbytes(x0),
-        2 * R * sum(d.tiles_bf16.numel() for d in (Fb.ldata, Fb.udata)))
+        2 * R * sum(d.tiles_bf16.numel() for d in _banks(Fb)))
     # config 1 at R = 1: four planes and b read, x written; two FMAs a
     # row per sweep
-    WORK["bidiag_ldiv"] = (_nbytes(*F1._scan_planes.values()) + 2 * F1.n * 4,
-                           4 * F1.n)
+    WORK["bidiag_ldiv"] = (
+        _nbytes(*F1._numeric.planes.values()) + 2 * F1.n * 4, 4 * F1.n)
     big = ", ".join(
         f"{dt} R={R} {ms[f'big_{dt}_R{R}']:.4f} / "
         f"{ms[f'big_{dt}_R{R}_device']:.4f}"
@@ -2250,7 +2257,7 @@ def _trsm_steps(F):
 
     R = HEADLINE["R"]
     ops, nbytes, flop = [], 0, 0
-    for data in (F.ldata, F.udata):
+    for data in _banks(F):
         for w in data.waves:
             if w.accumulate:
                 continue
@@ -2293,7 +2300,7 @@ def phase_tri_modes(smi):
     bt = None
     for mode in ("inv",) + modes:
         A, F, build_s[mode, "float64"] = _mode_solver("float64", mode)
-        if (F._ldiv_sched is None) is (mode == "inv"):
+        if (F._numeric.sched is None) is (mode == "inv"):
             raise AssertionError(f"{mode}: the solver took another path")
         e, raw, xs = {}, {}, {}
         A2, A4 = A.copy(), A.copy()
@@ -2352,9 +2359,9 @@ def phase_tri_modes(smi):
         torch.cuda.synchronize()
         d = {k: v - before[k] for k, v in read().items()}
         diag_waves = sum(not w.accumulate
-                         for data in (F.ldata, F.udata) for w in data.waves)
+                         for data in _banks(F) for w in data.waves)
         off_waves = sum(w.accumulate
-                        for data in (F.ldata, F.udata) for w in data.waves)
+                        for data in _banks(F) for w in data.waves)
         want = {"ldiv_fused": 0, "perm_gather": 2, "wave_apply_bf16": 0,
                 "wave_apply": off_waves + (2 * diag_waves
                                            if mode == "inv_refine" else 0)}
@@ -2366,7 +2373,7 @@ def phase_tri_modes(smi):
                                  f"{f32[mode]:.3e}")
         bt = torch.as_tensor(b, device="cuda")
         kernel_vs_plain = max(kernel_vs_plain, _rel(
-            F._direct_solve(bt), F._direct_solve(bt, plain=True)))
+            F._numeric.tiles(bt), F._numeric.tiles(bt, plain=True)))
         solvers[mode] = F
     launches = read()
     if not kernel_vs_plain <= TOL["float32"]:
@@ -2382,17 +2389,17 @@ def phase_tri_modes(smi):
                             dtype=getattr(torch, dt), device="cuda")
         for turn in (0, 1):
             for m in (("inv",) + modes)[::1 if turn == 0 else -1]:
-                fn = lambda F=sv[m]: F._direct_solve(b)
+                fn = lambda F=sv[m]: F._numeric.tiles(b)
                 ms.setdefault((m, dt), []).append(
                     (_median_ms(lambda _: fn()), _graph_ms(fn)))
         run, work = _trsm_steps(sv["trsm"])
         share[dt] = (_median_ms(lambda _: run()), _graph_ms(run))
         WORK["solve_triangular_" + dt] = work
         ms["plain", dt] = _median_ms(
-            lambda _: sv["trsm"]._direct_solve(b, plain=True))
+            lambda _: sv["trsm"]._numeric.tiles(b, plain=True))
         # the set-up the one bank layout costs "trsm": both factors'
         # diagonal-tile inverses
-        diags = [d.diag for d in (sv["trsm"].ldata, sv["trsm"].udata)]
+        diags = [d.diag for d in _banks(sv["trsm"])]
         ms["tri_inverse", dt] = _median_ms(
             lambda _: [tri_inverse(D, lower=lw)
                        for D, lw in zip(diags, (True, False))], reps=20)

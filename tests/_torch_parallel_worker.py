@@ -156,11 +156,12 @@ def run_case(name, mesh, d, D):
                             d, F.device)
         b = torch.as_tensor(rhs(A.shape[0], 8))
         xw = block_rhs(b, A.shape[0], plan.lplan.K, plan.cs)
-        seq = pipeline_tri_solve(comm, lrp, F.ldata, xw, micro_panels=4,
+        N = F._numeric
+        seq = pipeline_tri_solve(comm, lrp, N.ldata, xw, micro_panels=4,
                                  tri_mode="trsm")
-        seq = pipeline_tri_solve(comm, urp, F.udata, seq, micro_panels=4,
+        seq = pipeline_tri_solve(comm, urp, N.udata, seq, micro_panels=4,
                                  tri_mode="trsm")
-        pair = pipeline_ldiv_pair(comm, lrp, F.ldata, urp, F.udata, xw,
+        pair = pipeline_ldiv_pair(comm, lrp, N.ldata, urp, N.udata, xw,
                                   micro_panels=4, tri_mode="trsm")
         return {"seq": seq.numpy(), "pair": pair.numpy()}
     if name == "dp":

@@ -97,7 +97,8 @@ def test_ldiv_matches_jax(rng, case, refine_steps):
     assert torch.equal(tf.solve(rhs), tf.ldiv(rhs))
     assert torch.equal(tf(rhs), tf.ldiv(rhs))
     B = torch.as_tensor(rng.random((A.shape[0], 2)))
-    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
+    N = tf._numeric
+    assert torch.equal(N.tiles(B, plain=True), N.tiles(B))
 
 
 @pytest.mark.parametrize("case", ["poisson", "poisson_nd"])
@@ -270,7 +271,7 @@ def test_from_jax_arrays_checks_matrix(rng, tmp_path):
 def test_close_releases_device_state():
     F = tlu.ParallelSparseLU(poisson_2d(6, 6), chunk_size=8, device="cpu")
     tlu.cleanup_ParallelSparseLU(F)
-    assert F.ldata is None and F.udata is None
+    assert F._numeric is None
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +304,7 @@ def test_modes_match_jax_and_spsolve(rng, case, mode):
     A = make(rng)
     jf, tf = _mode_pair(A, mode, **cfg)
     assert tf.config.tri_mode == mode
-    assert (tf._ldiv_sched is None) is (mode != "inv")
+    assert (tf._numeric.sched is None) is (mode != "inv")
     tol = MODE_TOL[mode]
     for rhs in (rng.random(A.shape[0]), rng.random((A.shape[0], 3))):
         got = tf.ldiv(rhs)
@@ -313,7 +314,8 @@ def test_modes_match_jax_and_spsolve(rng, case, mode):
         assert_isapprox(got.numpy(), spla.spsolve(A.tocsc(), rhs), rtol=tol,
                         atol=tol)
     B = torch.as_tensor(rng.random((A.shape[0], 2)))
-    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
+    N = tf._numeric
+    assert torch.equal(N.tiles(B, plain=True), N.tiles(B))
 
 
 @pytest.mark.parametrize("mode", ["trsm", "inv_refine"])
@@ -364,7 +366,8 @@ def test_bf16_stream_is_ignored_outside_inv(rng):
         stream_dtype="bfloat16", **cfg), device="cpu")
     F32 = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfg),
                                device="cpu")
-    assert F.ldata.tiles_bf16 is None and F.udata.tiles_bf16 is None
+    N = F._numeric
+    assert N.ldata.tiles_bf16 is None and N.udata.tiles_bf16 is None
     b = rng.random((A.shape[0], 2)).astype(np.float32)
     assert torch.equal(F.ldiv(b), F32.ldiv(b))
 
@@ -376,7 +379,7 @@ def test_modes_keep_the_diagonal_tiles(rng):
     A = poisson_2d(7, 5)  # n = 35: the last chunk of 8 is padded
     F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
         chunk_size=8, tri_mode="trsm"), device="cpu")
-    for data in (F.ldata, F.udata):
+    for data in (F._numeric.ldata, F._numeric.udata):
         D = data.diag
         assert D.shape == (data.K + 1, 8, 8)
         assert torch.equal(D[-1], torch.eye(8, dtype=D.dtype))

@@ -87,7 +87,7 @@ def test_chain_ldiv_bits_equal_one_block(card, chain, R):
     _, F = chain
     b = torch.as_tensor(np.random.default_rng(R).standard_normal((N, R)),
                         dtype=torch.float32, device="cuda")
-    p = F._scan_planes
+    p = F._numeric.planes
     one = BL.bidiag_ldiv(b, lower=(p["aL"], p["sL"]),
                          upper=(p["aU"], p["sU"]), grid=1)
     assert torch.equal(F.ldiv(b), one)

@@ -20,6 +20,7 @@ from _approx import assert_isapprox
 
 import tpu_sparse_lu as jlu
 import tpu_sparse_lu_torch as tlu
+from tpu_sparse_lu_torch import trace
 from tpu_sparse_lu.models import (
     block_banded,
     fe_block_matrix,
@@ -130,7 +131,7 @@ def test_f64_tier_matches_jax(rng, tmp_path, case):
                                           pivot_threshold=0.0)),
     }[case]
     jf, tf = _carried(A, tmp_path, dtype="float32", **cfg)
-    assert tf._scan_perm_id == (case == "chain")
+    assert tf._numeric.chain == (case == "chain")
     B = rng.random((A.shape[0], 2))
     want = np.asarray(jf.make_f64_ldiv(refine_steps=2)(jnp.asarray(B)))
     got = tf.make_f64_ldiv(refine_steps=2)(B).numpy()
@@ -205,6 +206,30 @@ def test_f64_tier_after_refactor_numeric_uses_new_values(rng, case):
     assert _rel(x, spla.spsolve(A.tocsc(), b)) > 1e-3  # not the old matrix
 
 
+@pytest.mark.parametrize("case", ["poisson_nd", "chain"])
+def test_f64_tier_sweeps_are_residual_spans(rng, case):
+    """Each sweep of the f64 tier is a residual span, a direct solve and
+    an update span, as ``ldiv``'s refinement; the result is the bits of
+    the sweeps written out."""
+    if case == "chain":
+        F = _f32(laplacian_1d(400), chunk_size=128, ordering="natural",
+                 pivot_threshold=0.0)
+    else:
+        F = _f32(poisson_2d(12, 12), ordering="nd")
+    direct = "lu.ldiv.chain" if case == "chain" else "lu.ldiv.launch"
+    solve = F.make_f64_ldiv(refine_steps=3)
+    b = torch.as_tensor(rng.random((F.n, 2)))
+    trace.reset()
+    x = solve(b)
+    got = trace.totals()
+    assert got["lu.ldiv.residual"][0] == 6 and got[direct][0] == 4
+    N, A64 = F._numeric, F._csr_matrix(F._a64)
+    want = N.solve(b.float()).double()
+    for _ in range(3):
+        want = want + N.solve((b - A64 @ want).float()).double()
+    assert torch.equal(x, want)
+
+
 def test_f64_tier_keeps_float64_values(rng):
     """The residual uses A's float64 values, not the float32 copy."""
     A = poisson_2d(8, 8)
@@ -252,7 +277,8 @@ def test_bf16_stream_is_half_width(rng):
     F = _f32(A, chunk_size=8, stream_dtype="bfloat16")
     F32 = _f32(A, chunk_size=8)
     assert F._stream_dt == torch.bfloat16 and F32._stream_dt == torch.float32
-    for data, ref in ((F.ldata, F32.ldata), (F.udata, F32.udata)):
+    N, N32 = F._numeric, F32._numeric
+    for data, ref in ((N.ldata, N32.ldata), (N.udata, N32.udata)):
         assert data.tiles_bf16.dtype == torch.bfloat16
         assert data.tiles_bf16.element_size() == 2
         assert ref.tiles_bf16 is None
@@ -282,16 +308,17 @@ def test_bf16_plain_waves_match_jax_fused_ldiv(rng, tmp_path, R):
         tf = tlu.ParallelSparseLU.from_jax_arrays(A, dict(z), device="cpu")
     b = rng.random((A.shape[0], R)).astype(np.float32)
     want = _jax_bf16_ldiv(jf, jnp.asarray(b))
-    xw = perm_gather_plain(torch.as_tensor(b), tf._pidx, tf._rs).view(
+    N = tf._numeric
+    xw = perm_gather_plain(torch.as_tensor(b), N.pidx, N.rs).view(
         tf.plan.lplan.K + 1, tf.plan.cs, R)
-    for jdata, data in ((jf.ldata, tf.ldata), (jf.udata, tf.udata)):
+    for jdata, data in ((jf.ldata, N.ldata), (jf.udata, N.udata)):
         bank = np.concatenate([np.asarray(jdata.diag_inv),
                                np.asarray(jdata.offdiag)])
         bank = torch.as_tensor(bank.transpose(0, 2, 1).copy()).to(
             torch.bfloat16)
         for w in data.waves:
             wave_apply_bf16(xw, bank, w)
-    got = perm_gather_plain(xw.view(-1, R), tf._qidx).numpy()
+    got = perm_gather_plain(xw.view(-1, R), N.qidx).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -321,10 +348,10 @@ def test_bf16_device_refactor_refreshes_stream(rng):
     F = _f32(A, ordering="nd", stream_dtype="bfloat16")
     A2 = A.copy()
     A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
-    old = F.ldata.tiles_bf16
+    old = F._numeric.ldata.tiles_bf16
     F.refactor_numeric(A2)
-    assert F.ldata.tiles_bf16 is not old
-    for data in (F.ldata, F.udata):
+    assert F._numeric.ldata.tiles_bf16 is not old
+    for data in (F._numeric.ldata, F._numeric.udata):
         torch.testing.assert_close(data.tiles_bf16,
                                    data.tiles_t.to(torch.bfloat16),
                                    rtol=0, atol=0)

@@ -96,7 +96,8 @@ def _wave_route(F):
     carrier blocks read, written), from the solver's waves and perms."""
     K, cs = F.plan.lplan.K, F.plan.cs
     ops = [(FL.PERM_IN, k, [], set(), {k}) for k in range(K + 1)]
-    for bank, data in ((0, F.ldata), (FL.BANK_U, F.udata)):
+    N = F._numeric
+    for bank, data in ((0, N.ldata), (FL.BANK_U, N.udata)):
         for w in data.waves:
             ptr = w.ptr.tolist()
             flags = FL.WAVE | bank | (FL.ACCUMULATE if w.accumulate else 0)
@@ -105,7 +106,7 @@ def _wave_route(F):
                                w.ent_src[ptr[i]:ptr[i + 1]].tolist()))
                 reads = {s for _, s in ent} | ({d} if w.accumulate else set())
                 ops.append((flags, d, ent, reads, {d}))
-    q = F._qidx.numpy()
+    q = N.qidx.numpy()
     for m in range(-(-F.n // cs)):
         ops.append((FL.PERM_OUT, m, [], set((q[m * cs:(m + 1) * cs] // cs)
                                             .tolist()), set()))
@@ -119,7 +120,7 @@ def test_dependencies_order_every_conflict(rng, case):
     on a carrier block is ordered by a path of dependencies, each to an
     earlier ticket and each itself such a conflict."""
     _, F = _solver(case, rng)
-    S = F._ldiv_sched
+    S = F._numeric.sched
     ops = _wave_route(F)
     assert S.n_tasks == len(ops)
     for t, (flags, d, ent, _, _) in enumerate(ops):
@@ -174,9 +175,10 @@ def test_any_valid_order_gives_the_same_bits(rng, case, R, dtype):
     bit for bit, and the plain wave route up to the rounding of the
     batched product."""
     A, F = _solver(case, rng, dtype=dtype)
-    S = F._ldiv_sched
+    N = F._numeric
+    S = N.sched
     b = torch.as_tensor(rng.standard_normal((A.shape[0], R)), dtype=F.dtype)
-    args = (b, S, F.ldata.tiles_t, F.udata.tiles_t, F._rs)
+    args = (b, S, N.ldata.tiles_t, N.udata.tiles_t, N.rs)
     want = FL.fused_ldiv_plain(*args)
     moved = 0
     for seed in range(3):
@@ -185,10 +187,10 @@ def test_any_valid_order_gives_the_same_bits(rng, case, R, dtype):
         assert torch.equal(FL.fused_ldiv_plain(*args, order=order), want)
     assert moved
     rtol = 1e-6 if dtype == "float32" else 1e-14
-    ref = F._direct_solve(b, plain=True)
+    ref = N.tiles(b, plain=True)
     torch.testing.assert_close(want, ref, rtol=rtol,
                                atol=rtol * float(ref.abs().max()))
-    assert torch.equal(F._direct_solve(b), want)
+    assert torch.equal(N.tiles(b), want)
 
 
 def _jax_ldiv(F, b):
@@ -244,9 +246,10 @@ def test_plain_matches_jax_fused_ldiv(rng, tmp_path, case, R, stream):
     b = rng.random((A.shape[0], R)).astype(np.float32)
     ref = _jax_ldiv(jf, jnp.asarray(b))
     tdt = getattr(torch, stream)
-    got = FL.fused_ldiv_plain(torch.as_tensor(b), tf._ldiv_sched,
+    got = FL.fused_ldiv_plain(torch.as_tensor(b), tf._numeric.sched,
                               _jax_bank(jf.ldata, tdt),
-                              _jax_bank(jf.udata, tdt), tf._rs).numpy()
+                              _jax_bank(jf.udata, tdt),
+                              tf._numeric.rs).numpy()
     assert_isapprox(got, ref, rtol=1e-5, atol=1e-6)
     if case != "fe":
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
@@ -260,25 +263,26 @@ def test_schedule_lifetime(rng):
         chunk_size=16, ordering="nd", dtype="float64"), device="cpu")
     b = rng.random(A.shape[0])
     F.refactor_numeric(A)  # the first one re-plans on the closure
-    S = F._ldiv_sched
+    S = F._numeric.sched
     A2 = A.copy()
     A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
     F.refactor_numeric(A2)
-    assert F._ldiv_sched is S
+    assert F._numeric.sched is S
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A2, b),
                                rtol=1e-9, atol=1e-12)
     x = F.make_refactor_solve_step()(A2.data, b)
-    assert F._ldiv_sched is S
+    assert F._numeric.sched is S
     np.testing.assert_allclose(x.numpy(), spla.spsolve(A2, b), rtol=1e-9,
                                atol=1e-12)
     # a new pattern: the host refactorization re-plans, the list follows
     A3 = (A2 + sp.diags([0.01] * (A.shape[0] - 3), 3)
           + sp.diags([0.01] * (A.shape[0] - 3), -3)).tocsc()
     F.refactor(A3)
-    S3 = F._ldiv_sched
+    S3 = F._numeric.sched
     assert S3 is not S
     K, cs = F.plan.lplan.K, F.plan.cs
-    n_wave = sum(int(w.dst.shape[0]) for d in (F.ldata, F.udata)
+    n_wave = sum(int(w.dst.shape[0])
+                 for d in (F._numeric.ldata, F._numeric.udata)
                  for w in d.waves)
     assert S3.n_tasks == K + 1 + n_wave + -(-F.n // cs)
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A3, b),
@@ -290,10 +294,10 @@ def test_refined_ldiv_matches_the_wave_route(rng):
     composed from the plain wave route."""
     A, F = _solver("poisson_nd", rng)
     b = torch.as_tensor(rng.random((A.shape[0], 3)), dtype=F.dtype)
-    want = F._direct_solve(b, plain=True)
+    want = F._numeric.tiles(b, plain=True)
     for steps in (0, 1):
         if steps:
-            want = want + F._direct_solve(b - F.matvec(want), plain=True)
+            want = want + F._numeric.tiles(b - F.matvec(want), plain=True)
         torch.testing.assert_close(F.ldiv(b, refine_steps=steps), want,
                                    rtol=1e-6, atol=1e-6)
 
@@ -303,7 +307,7 @@ def test_state_per_stream():
     stream), made fresh (generation 1, nothing done) and then kept."""
     F = tlu.ParallelSparseLU(poisson_2d(6, 6), config=tlu.SolverConfig(
         chunk_size=8), device="cpu")
-    S = F._ldiv_sched
+    S = F._numeric.sched
     a, b = S.state(4, "cpu", 11), S.state(4, "cpu", 12)
     assert a is not b and a.data_ptr() != b.data_ptr()
     assert a is S.state(4, "cpu", 11) and b is S.state(4, "cpu", 12)
@@ -333,28 +337,29 @@ def test_clock_patch_fits_the_shipped_kernel():
 
 def test_wrappers_on_cpu_launch_nothing(rng):
     A, F = _solver("poisson_nd", rng, dtype="float32")
-    S = F._ldiv_sched
+    N = F._numeric
+    S, rs = N.sched, N.rs
     b = torch.as_tensor(rng.random((A.shape[0], 2)), dtype=torch.float32)
     before = (FL.fused_ldiv.LAUNCHES, FL.fused_ldiv_bf16.LAUNCHES)
-    L, U = F.ldata.tiles_t, F.udata.tiles_t
+    L, U = N.ldata.tiles_t, N.udata.tiles_t
     Lb, Ub = L.bfloat16(), U.bfloat16()
-    assert torch.equal(FL.fused_ldiv(b, S, L, U, F._rs),
-                       FL.fused_ldiv_plain(b, S, L, U, F._rs))
-    assert torch.equal(FL.fused_ldiv_bf16(b, S, Lb, Ub, F._rs),
-                       FL.fused_ldiv_plain(b, S, Lb, Ub, F._rs))
+    assert torch.equal(FL.fused_ldiv(b, S, L, U, rs),
+                       FL.fused_ldiv_plain(b, S, L, U, rs))
+    assert torch.equal(FL.fused_ldiv_bf16(b, S, Lb, Ub, rs),
+                       FL.fused_ldiv_plain(b, S, Lb, Ub, rs))
     assert (FL.fused_ldiv.LAUNCHES, FL.fused_ldiv_bf16.LAUNCHES) == before
     with pytest.raises(ValueError, match="bfloat16 banks"):
-        FL.fused_ldiv_bf16(b, S, L, U, F._rs)
+        FL.fused_ldiv_bf16(b, S, L, U, rs)
     with pytest.raises(ValueError, match="device type 'meta'"):
         FL.fused_ldiv(b.to("meta"), S, L.to("meta"), U.to("meta"),
-                      F._rs.to("meta"))
+                      rs.to("meta"))
 
 
 def test_schedule_rejects_bad_maps():
     F = tlu.ParallelSparseLU(poisson_2d(6, 6), config=tlu.SolverConfig(
         chunk_size=8), device="cpu")
     lp, up, cs = F.plan.lplan, F.plan.uplan, F.plan.cs
-    p, q = F._pidx.numpy(), F._qidx.numpy()
+    p, q = F._numeric.pidx.numpy(), F._numeric.qidx.numpy()
     with pytest.raises(ValueError, match="pidx"):
         FL.build_ldiv_schedule(lp, up, p[:-1], q, F.n, cs, "cpu")
     with pytest.raises(ValueError, match="qidx outside"):
@@ -392,7 +397,7 @@ def test_critical_path_of_the_deployments(name, make, cfg, want):
     wave into the next chunk) and of its wide Poisson plan."""
     F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
         dtype="float32", **cfg), device="cpu")
-    S = F._ldiv_sched
+    S = F._numeric.sched
     assert S.critical_path == want
     assert S.critical_path == _longest_path(
         S.n_tasks, [_deps(S, t) for t in range(S.n_tasks)])
@@ -416,7 +421,7 @@ def test_critical_path_is_the_longest_path(seed):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_critical_path_of_the_cases(rng, case):
     _, F = _solver(case, rng)
-    S = F._ldiv_sched
+    S = F._numeric.sched
     assert 1 < S.critical_path < S.n_tasks
     assert S.critical_path == _longest_path(
         S.n_tasks, [_deps(S, t) for t in range(S.n_tasks)])
@@ -456,19 +461,20 @@ def test_narrow_launches_stay_zero_on_cpu(rng):
     narrow or not, with runs (the chain of this plan) or not, and the
     same bits."""
     A, F = _solver("laplace1d", rng)
-    S = F._ldiv_sched
+    N = F._numeric
+    S, rs = N.sched, N.rs
     assert S.runs
     b = torch.as_tensor(rng.random((A.shape[0], 8)), dtype=F.dtype)
     before = (FL.fused_ldiv.NARROW_LAUNCHES,
               FL.fused_ldiv_bf16.NARROW_LAUNCHES, FL.fused_ldiv.LAUNCHES,
               FL.fused_ldiv.RUN_LAUNCHES, FL.fused_ldiv_bf16.RUN_LAUNCHES)
-    L, U = F.ldata.tiles_t, F.udata.tiles_t
-    want = FL.fused_ldiv_plain(b, S, L, U, F._rs)
+    L, U = N.ldata.tiles_t, N.udata.tiles_t
+    want = FL.fused_ldiv_plain(b, S, L, U, rs)
     for strip in (None, *FL.TASK_US):
-        assert torch.equal(FL.fused_ldiv(b, S, L, U, F._rs, strip=strip),
+        assert torch.equal(FL.fused_ldiv(b, S, L, U, rs, strip=strip),
                            want)
         FL.fused_ldiv_bf16(b.float(), S, L.bfloat16(), U.bfloat16(),
-                           F._rs.float(), strip=strip)
+                           rs.float(), strip=strip)
     assert F.ldiv(b).shape == b.shape
     assert (FL.fused_ldiv.NARROW_LAUNCHES,
             FL.fused_ldiv_bf16.NARROW_LAUNCHES,
@@ -524,7 +530,7 @@ def test_runs_are_maximal_chains(rng, case):
     before it; the units partition the tasks, and each task's unit polls
     its dependencies less the task before it in its run."""
     _, F = _run_solver(case, rng)
-    S = F._ldiv_sched
+    S = F._numeric.sched
     in_run = np.zeros(S.n_tasks, dtype=bool)
     for t0, t1 in S.runs:
         assert t1 > t0
@@ -587,16 +593,17 @@ def test_run_order_gives_the_same_bits(rng, case):
     only order between units) equals ticket order bit for bit, in float32
     and with bfloat16 tiles."""
     A, F = _run_solver(case, rng, dtype="float32")
-    S = F._ldiv_sched
+    N = F._numeric
+    S, rs = N.sched, N.rs
     b = torch.as_tensor(rng.standard_normal((A.shape[0], 3)),
                         dtype=torch.float32)
-    for L, U in ((F.ldata.tiles_t, F.udata.tiles_t),
-                 (F.ldata.tiles_t.bfloat16(), F.udata.tiles_t.bfloat16())):
-        want = FL.fused_ldiv_plain(b, S, L, U, F._rs)
+    for L, U in ((N.ldata.tiles_t, N.udata.tiles_t),
+                 (N.ldata.tiles_t.bfloat16(), N.udata.tiles_t.bfloat16())):
+        want = FL.fused_ldiv_plain(b, S, L, U, rs)
         for seed in range(2):
             order = _random_unit_order(S, np.random.default_rng(seed))
             assert torch.equal(
-                FL.fused_ldiv_plain(b, S, L, U, F._rs, order=order), want)
+                FL.fused_ldiv_plain(b, S, L, U, rs, order=order), want)
 
 
 @pytest.mark.parametrize("name, make, cfg, want, runs", [
@@ -612,7 +619,7 @@ def test_run_path_of_the_deployments(name, make, cfg, want, runs):
     times keeps 1 column on the deep plan and 4 on the Poisson plan."""
     F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
         dtype="float32", **cfg), device="cpu")
-    S = F._ldiv_sched
+    S = F._numeric.sched
     assert S.run_path == want
     assert [t1 - t0 + 1 for t0, t1 in S.runs] == runs
     assert S.run_tasks == sum(runs)
@@ -637,7 +644,7 @@ def test_float64_launches_cost_no_run(rng, monkeypatch, chunk):
         block_banded(np.random.default_rng(0), 40, 9),
         config=tlu.SolverConfig(dtype="float32", chunk_size=chunk,
                                 ordering="colamd"), device="cpu")
-    S = F._ldiv_sched
+    S = F._numeric.sched
     assert S.runs and S.cs == chunk
     tile = S.ent_tile.size * S.cs ** 2
     for name, size in FL._TILE_SIZE.items():
@@ -660,7 +667,8 @@ def test_deep_runs_span_batches(pad):
     make, cfg = DEEP
     F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
         dtype="float32", **cfg), device="cpu")
-    S0 = F._ldiv_sched
+    N = F._numeric
+    S0 = N.sched
     S = padded_waits(S0, pad)
     assert S.runs == S0.runs and len(S.runs) == 2
     assert S.unit_ptr.tolist() == S0.unit_ptr.tolist()
@@ -671,10 +679,10 @@ def test_deep_runs_span_batches(pad):
     assert (max(max(run) for run in waits) > READ_AHEAD) == (pad > 0)
     b = torch.as_tensor(np.random.default_rng(1).standard_normal((F.n, 3)),
                         dtype=torch.float32)
-    for L, U in ((F.ldata.tiles_t, F.udata.tiles_t),
-                 (F.ldata.tiles_t.bfloat16(), F.udata.tiles_t.bfloat16())):
-        assert torch.equal(FL.fused_ldiv_plain(b, S, L, U, F._rs),
-                           FL.fused_ldiv_plain(b, S0, L, U, F._rs))
+    for L, U in ((N.ldata.tiles_t, N.udata.tiles_t),
+                 (N.ldata.tiles_t.bfloat16(), N.udata.tiles_t.bfloat16())):
+        assert torch.equal(FL.fused_ldiv_plain(b, S, L, U, N.rs),
+                           FL.fused_ldiv_plain(b, S0, L, U, N.rs))
 
 
 def _run_path_brute(n, deps, in_run):

@@ -50,12 +50,12 @@ def card():
 
 
 def _route32(F, b):
-    R = b.shape[1]
-    xw = FL.perm_gather(b, F._pidx, F._rs).view(F.plan.lplan.K + 1,
-                                                F.plan.cs, R)
-    blocked_tri_solve(F.ldata, xw, stream=True)
-    blocked_tri_solve(F.udata, xw, stream=True)
-    return FL.perm_gather(xw.view(-1, R), F._qidx)
+    R, N = b.shape[1], F._numeric
+    xw = FL.perm_gather(b, N.pidx, N.rs).view(F.plan.lplan.K + 1,
+                                              F.plan.cs, R)
+    blocked_tri_solve(N.ldata, xw, stream=True)
+    blocked_tri_solve(N.udata, xw, stream=True)
+    return FL.perm_gather(xw.view(-1, R), N.qidx)
 
 
 @pytest.mark.parametrize("tiles", sorted(TILES))
@@ -66,21 +66,22 @@ def test_every_strip_gives_the_same_bits(card, case, R, tiles):
     dtype, stream = TILES[tiles]
     F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
         dtype=dtype, stream_dtype=stream, **cfg), device="cuda")
-    S, L, U = F._ldiv_sched, F.ldata, F.udata
+    N = F._numeric
+    S, L, U = N.sched, N.ldata, N.udata
     b = torch.as_tensor(np.random.default_rng(17).standard_normal((F.n, R)),
                         dtype=F.dtype, device="cuda")
     if tiles == "bfloat16":
         wrapper = FL.fused_ldiv_bf16
-        run = lambda **kw: wrapper(b, S, L.tiles_bf16, U.tiles_bf16, F._rs,
+        run = lambda **kw: wrapper(b, S, L.tiles_bf16, U.tiles_bf16, N.rs,
                                    **kw)
     else:
         wrapper = FL.fused_ldiv
-        run = lambda **kw: wrapper(b, S, L.tiles_t, U.tiles_t, F._rs, **kw)
+        run = lambda **kw: wrapper(b, S, L.tiles_t, U.tiles_t, N.rs, **kw)
     want = run(strip=16)
     assert torch.equal(want, _route32(F, b))
     narrow = wrapper.NARROW_LAUNCHES
     assert torch.equal(run(), want)
-    assert torch.equal(F._direct_solve(b), want)
+    assert torch.equal(N.tiles(b), want)
     rb = FL.launch_strip(f"ldiv_fused_{FL._KERNEL_DTYPES[F.dtype]}"
                          if tiles != "bfloat16" else "ldiv_fused_bf16",
                          S, R, b.device)
@@ -107,7 +108,8 @@ def test_a_tile_the_bulk_copy_cannot_take_runs_as_single_tickets(card,
         config=tlu.SolverConfig(dtype=dtype, stream_dtype=stream,
                                 chunk_size=45, ordering="colamd"),
         device="cuda")
-    S, L, U = F._ldiv_sched, F.ldata, F.udata
+    N = F._numeric
+    S, L, U = N.sched, N.ldata, N.udata
     assert S.run_path == S.critical_path - 2
     b = torch.as_tensor(np.random.default_rng(3).standard_normal((F.n, 8)),
                         dtype=F.dtype, device="cuda")
@@ -118,9 +120,9 @@ def test_a_tile_the_bulk_copy_cannot_take_runs_as_single_tickets(card,
         for grid in (None, 1, 2):
             if tiles == "bfloat16":
                 got = FL.fused_ldiv_bf16(b, S, L.tiles_bf16, U.tiles_bf16,
-                                         F._rs, strip=strip, grid=grid)
+                                         N.rs, strip=strip, grid=grid)
             else:
-                got = FL.fused_ldiv(b, S, L.tiles_t, U.tiles_t, F._rs,
+                got = FL.fused_ldiv(b, S, L.tiles_t, U.tiles_t, N.rs,
                                     strip=strip, grid=grid)
             assert torch.equal(got, want), (strip, grid)
     assert wrapper.RUN_LAUNCHES == runs
@@ -139,11 +141,12 @@ def test_deep_runs_give_the_same_bits(card, tiles, pad):
     dtype, stream = TILES[tiles]
     F = tlu.ParallelSparseLU(make(), config=tlu.SolverConfig(
         dtype=dtype, stream_dtype=stream, **cfg), device="cuda")
-    S = padded_waits(F._ldiv_sched, pad)
+    N = F._numeric
+    S = padded_waits(N.sched, pad)
     assert all(t1 - t0 + 1 > 2 * RUN_BATCH for t0, t1 in S.runs)
     assert (max(max(w) for w in batch_waits(S)) > READ_AHEAD) == (pad > 0)
-    L, U = ((F.ldata.tiles_bf16, F.udata.tiles_bf16) if tiles == "bfloat16"
-            else (F.ldata.tiles_t, F.udata.tiles_t))
+    L, U = ((N.ldata.tiles_bf16, N.udata.tiles_bf16) if tiles == "bfloat16"
+            else (N.ldata.tiles_t, N.udata.tiles_t))
     wrapper = FL.fused_ldiv_bf16 if tiles == "bfloat16" else FL.fused_ldiv
     b = torch.as_tensor(np.random.default_rng(9).standard_normal((F.n, 8)),
                         dtype=F.dtype, device="cuda")
@@ -151,10 +154,10 @@ def test_deep_runs_give_the_same_bits(card, tiles, pad):
     runs = wrapper.RUN_LAUNCHES
     for strip in FL.TASK_US:
         for grid in (None, 1, 2):
-            got = wrapper(b, S, L, U, F._rs, strip=strip, grid=grid)
+            got = wrapper(b, S, L, U, N.rs, strip=strip, grid=grid)
             assert torch.equal(got, want), (strip, grid)
     assert wrapper.RUN_LAUNCHES - runs == 3 * len(FL.TASK_US)
-    graph, out = _capture(lambda: wrapper(b, S, L, U, F._rs))
+    graph, out = _capture(lambda: wrapper(b, S, L, U, N.rs))
     for _ in range(2):
         out.zero_()
         graph.replay()
@@ -189,9 +192,9 @@ def test_graph_replays_give_the_same_bits(card, case, tiles):
         dtype=dtype, stream_dtype=stream, **cfg), device="cuda")
     b = torch.as_tensor(np.random.default_rng(5).standard_normal((F.n, 16)),
                         dtype=F.dtype, device="cuda")
-    want = F._direct_solve(b)
+    want = F._numeric.tiles(b)
     assert torch.equal(want, _route32(F, b))
-    graph, out = _capture(lambda: F._direct_solve(b))
+    graph, out = _capture(lambda: F._numeric.tiles(b))
     for _ in range(2):
         out.zero_()
         graph.replay()
@@ -211,17 +214,17 @@ def test_run_launches_count_plans_with_runs(card):
         sp.diags(np.arange(1.0, 65.0)).tocsc(),
         config=tlu.SolverConfig(dtype="float32", chunk_size=32),
         device="cuda")
-    assert F._ldiv_sched.runs and not D._ldiv_sched.runs
+    assert F._numeric.sched.runs and not D._numeric.sched.runs
     assert {name for name in FL._TILE_SIZE
-            if FL._takes_runs(name, F._ldiv_sched)} == {"ldiv_fused_f32",
-                                                        "ldiv_fused_bf16"}
-    S = D._ldiv_sched
+            if FL._takes_runs(name, F._numeric.sched)} == {
+                "ldiv_fused_f32", "ldiv_fused_bf16"}
+    S = D._numeric.sched
     assert S.unit_ptr.tolist() == list(range(S.n_tasks + 1))
     for G, want in ((F, 2), (F64, 0), (D, 0)):
         b = torch.ones((G.n, 8), dtype=G.dtype, device="cuda")
         before = FL.fused_ldiv.RUN_LAUNCHES, FL.fused_ldiv.LAUNCHES
-        x = G._direct_solve(b)
-        x = G._direct_solve(b)
+        x = G._numeric.tiles(b)
+        x = G._numeric.tiles(b)
         assert torch.equal(x, _route32(G, b))
         assert (FL.fused_ldiv.RUN_LAUNCHES - before[0],
                 FL.fused_ldiv.LAUNCHES - before[1]) == (want, 2)

@@ -109,13 +109,14 @@ def _plain_ldiv(jf, tf, b):
     tiles, so only the order of the sums differs from the JAX kernel."""
     R = b.shape[1]
     bt = torch.as_tensor(b, dtype=tf.dtype)
-    xw = perm_gather_plain(bt, tf._pidx, tf._rs).view(
+    N = tf._numeric
+    xw = perm_gather_plain(bt, N.pidx, N.rs).view(
         tf.plan.lplan.K + 1, tf.plan.cs, R)
-    for jdata, data in ((jf.ldata, tf.ldata), (jf.udata, tf.udata)):
+    for jdata, data in ((jf.ldata, N.ldata), (jf.udata, N.udata)):
         bank = _jax_bank(jdata)
         for w in data.waves:
             wave_apply_plain(xw, bank, w)
-    return perm_gather_plain(xw.view(-1, R), tf._qidx).numpy()
+    return perm_gather_plain(xw.view(-1, R), N.qidx).numpy()
 
 
 CASES = {
@@ -155,8 +156,8 @@ def test_tiles_match_jax(rng, tmp_path, case):
     A = make(rng)
     jf, tf = _carried(A, tmp_path, **cfg)
     for tplan, M, jdata, tdata in (
-            (tf.plan.lplan, tf.L, jf.ldata, tf.ldata),
-            (tf.plan.uplan, tf.U, jf.udata, tf.udata)):
+            (tf.plan.lplan, tf.L, jf.ldata, tf._numeric.ldata),
+            (tf.plan.uplan, tf.U, jf.udata, tf._numeric.udata)):
         diag, off = pack_factor(tplan, torch.as_tensor(M.data))
         want_d, want_o = pack_factor_np(tplan, np.asarray(M.data))
         np.testing.assert_array_equal(diag.numpy(), want_d)

@@ -146,7 +146,7 @@ def test_sharded_perm_plan_equals_jax(family, D):
     _, F = _port(family)
     jf = _jax(family)
     Kl = -(-F.plan.lplan.K // D)
-    qb = pp.build_perm_blocks(F._qidx.numpy(), F.n, F.plan.cs,
+    qb = pp.build_perm_blocks(F._numeric.qidx.numpy(), F.n, F.plan.cs,
                               n_in=F.plan.n)
     assert (qb.K, qb.S, qb.K_in) == (jf._qperm.K, jf._qperm.S,
                                      jf._qperm.K_in)
@@ -172,7 +172,7 @@ def test_sharded_perm_plan_equals_jax(family, D):
             if 0 <= dst < D:
                 seg = np.where(idx >= 0, loc[np.maximum(idx, 0)], 0.0)
                 out[dst * got.Ko_l * cs:(dst + 1) * got.Ko_l * cs] += seg
-    q = F._qidx.numpy()
+    q = F._numeric.qidx.numpy()
     np.testing.assert_array_equal(out[: F.n], x[q])
     assert not out[F.n:].any()
 
@@ -354,8 +354,8 @@ def test_pipeline_pair_matches_sequential(runs, D):
                                atol=1e-12)
     b = torch.as_tensor(W.rhs(A.shape[0], 8))
     xw = block_rhs(b, A.shape[0], F.plan.lplan.K, F.plan.cs)
-    blocked_tri_solve(F.ldata, xw, mode="trsm")
-    blocked_tri_solve(F.udata, xw, mode="trsm")
+    blocked_tri_solve(F._numeric.ldata, xw, mode="trsm")
+    blocked_tri_solve(F._numeric.udata, xw, mode="trsm")
     K = F.plan.lplan.K
     np.testing.assert_allclose(got[0]["pair"][:K], xw[:K].numpy(),
                                rtol=1e-12, atol=1e-12)

@@ -200,7 +200,7 @@ def test_light_save_preserves_config(tmp_path):
     G = _load(A, path)
     assert G.config == F.config
     assert G.config.stream_dtype == "bfloat16"
-    assert G.ldata.tiles_bf16 is not None
+    assert G._numeric.ldata.tiles_bf16 is not None
     assert G.config.factorize == "device" and G._nd_cutoff == 32
     assert G.chunk_size == F.chunk_size
     T = _solver(A, chunk_size=16, tri_mode="inv_refine")

@@ -56,7 +56,8 @@ from tpu_sparse_lu_torch.ops.elimination import (
 from tpu_sparse_lu_torch.ops.lu_tile import lu_nopivot, lu_tile
 from tpu_sparse_lu_torch.ops.span_gather import span_gather, span_gather_plain
 from tpu_sparse_lu_torch.ops.tri_inverse import tri_inverse
-from tpu_sparse_lu_torch.refactor import blocked_fill
+from tpu_sparse_lu_torch.refactor import blocked_fill, refactor_pipeline
+from tpu_sparse_lu_torch.solve import refine
 
 INV_TOL = 1e-9
 TOL = 1e-12  # the reference's sparse bar (test/runtests.jl:25)
@@ -916,6 +917,38 @@ def test_fused_step_tri_modes(rng, tri_mode):
     assert torch.equal(tf.ldiv(b), x)
 
 
+@pytest.mark.parametrize("refine_steps", [0, 1])
+@pytest.mark.parametrize("ordering, tri_mode, dtype", [
+    ("nd", "inv", "float32"), ("colamd", "trsm", "float64")])
+def test_with_banks_is_the_one_bank_swap(rng, ordering, tri_mode, dtype,
+                                         refine_steps):
+    """``refactor_pipeline`` then ``DeviceFactors.with_banks`` solves to
+    the bits of ``refactor_numeric`` then ``ldiv``, and of the
+    refactor-solve step on the same values; the new state keeps the
+    plans, the permutations and the task list."""
+    A = poisson_2d(12, 10)
+    tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=16, ordering=ordering, tri_mode=tri_mode, dtype=dtype),
+        device="cpu")
+    step = tf.make_refactor_solve_step(refine_steps=refine_steps)
+    A2 = _perturb(rng, A, 0.05)
+    b = torch.as_tensor(rng.random((A.shape[0], 3)), dtype=tf.dtype)
+    before = tf._numeric
+    N = before.with_banks(
+        refactor_pipeline(torch.as_tensor(A2.data, dtype=tf.dtype),
+                          tf._refactor_dev), tf._ext_pos_dev)
+    assert N is not before and tf._numeric is before
+    assert all(getattr(N, k) is getattr(before, k)
+               for k in ("pidx", "qidx", "sched", "mode"))
+    x_step = step(A2.data, b)
+    assert tf._numeric is before  # the step leaves the solver's state
+    tf.refactor_numeric(A2)
+    assert tf._numeric is not before
+    x = refine(N.solve, tf._residual, b, N.solve(b), refine_steps)
+    assert torch.equal(x, tf.ldiv(b, refine_steps=refine_steps))
+    assert torch.equal(x, x_step)
+
+
 @pytest.mark.parametrize("tri_mode", ["trsm", "inv_refine"])
 def test_factorize_device_tri_modes(rng, tri_mode):
     """A first factorization on the device feeds the mode's solve: 1e-12
@@ -933,7 +966,8 @@ def test_factorize_device_tri_modes(rng, tri_mode):
     assert_isapprox(tf.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
                     rtol=TOL, atol=TOL)
     B = torch.as_tensor(b)
-    assert torch.equal(tf._direct_solve(B, plain=True), tf._direct_solve(B))
+    N = tf._numeric
+    assert torch.equal(N.tiles(B, plain=True), N.tiles(B))
 
 
 def test_plain_route_equals_kernel_route_on_cpu(rng):
@@ -943,9 +977,9 @@ def test_plain_route_equals_kernel_route_on_cpu(rng):
     A2 = _perturb(rng, A, 0.05)
     tf.refactor_numeric(A2)
     b = torch.as_tensor(rng.random((A.shape[0], 2)))
-    x = tf._direct_solve(b)
+    x = tf._numeric.tiles(b)
     tf.refactor_numeric(A2, plain=True)
-    assert torch.equal(tf._direct_solve(b), x)
+    assert torch.equal(tf._numeric.tiles(b), x)
 
 
 def test_cpu_refactor_launches_no_kernel(rng):
@@ -1094,7 +1128,7 @@ def test_close_releases_refactor_state(rng):
     tf.refactor_numeric(_perturb(rng, A, 0.05))
     tf.close()
     assert not tf.has_device_refactor and tf._refactor_dev is None
-    assert tf.refactor_diagnostics is None and tf.ldata is None
+    assert tf.refactor_diagnostics is None and tf._numeric is None
 
 
 def _refined_oracle(A, b):

@@ -20,6 +20,8 @@ from _approx import assert_isapprox
 import tpu_sparse_lu as jlu
 import tpu_sparse_lu_torch as tlu
 import tpu_sparse_lu_torch.api as tapi
+import tpu_sparse_lu_torch.solve as tsolve
+from tpu_sparse_lu_torch import trace
 from tpu_sparse_lu.models import laplacian_1d, poisson_2d
 from tpu_sparse_lu.ops.scan_solve import bidiag_bands as jax_bidiag_bands
 from tpu_sparse_lu.ops.scan_solve import (
@@ -74,7 +76,8 @@ def chain_only(monkeypatch):
         raise AssertionError("the tile waves ran on a chain")
 
     monkeypatch.setattr(tapi, "bidiag_ldiv", counted)
-    monkeypatch.setattr(tapi.ParallelSparseLU, "_direct_solve", no_waves)
+    monkeypatch.setattr(tsolve, "bidiag_ldiv", counted)
+    monkeypatch.setattr(tsolve.DeviceFactors, "tiles", no_waves)
     monkeypatch.setattr(tapi.ParallelSparseLU, "_tri_solve", no_waves)
     return calls
 
@@ -88,7 +91,7 @@ def chain_only(monkeypatch):
 @pytest.mark.parametrize("n", [7, 300])
 def test_bands_and_planes_equal_jax(n, dtype):
     A, jf, tf = _chain_pair(n, dtype)
-    assert tf._scan_perm_id and jf._scan_perm_id
+    assert tf._numeric.chain and jf._scan_perm_id
     for lower, M in ((True, tf.L), (False, tf.U)):
         got, want = bidiag_bands(M, lower=lower), jax_bidiag_bands(
             M, lower=lower)
@@ -97,12 +100,17 @@ def test_bands_and_planes_equal_jax(n, dtype):
     np.testing.assert_array_equal(tf.L.toarray(), jf.L.toarray())
     np.testing.assert_array_equal(tf.U.toarray(), jf.U.toarray())
     for key in ("aL", "sL", "aU", "sU"):
-        got = tf._scan_planes[key].numpy()
+        got = tf._numeric.planes[key].numpy()
         want = np.asarray(jf._scan2d[key]).ravel()[:n]
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+    # the port keeps its bands on the host only: the same as JAX's device
+    # bands at the solver's dtype
+    bands = {"l": bidiag_bands(tf.L, lower=True),
+             "u": bidiag_bands(tf.U, lower=False)}
     for key in ("ld", "lo", "ud", "uo"):
-        np.testing.assert_array_equal(tf._scan_bands[key].numpy(),
+        band = bands[key[0]]["diag" if key[1] == "d" else "off"]
+        np.testing.assert_array_equal(np.asarray(band, dtype),
                                       np.asarray(jf._scan_bands[key]))
 
 
@@ -125,7 +133,7 @@ def test_bidiag_detection_negative():
     F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(chunk_size=32),
                              device="cpu")
     # 2-D stencil factors are not bidiagonal
-    assert F._scan_bands is None and not F._scan_perm_id
+    assert F._numeric.planes is None and not F._numeric.chain
     lb = bidiag_bands(sp.csc_matrix(np.triu(np.ones((5, 5)))), lower=False)
     assert lb is None  # bandwidth > 1
     # an upper bidiagonal matrix is not a lower one
@@ -143,8 +151,8 @@ def test_chain_under_pivoting_orderings_keeps_waves_for_ldiv(rng):
                                                          **cfgs))
     tf = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(**cfgs),
                               device="cpu")
-    assert (tf._scan_bands is None) == (jf._scan_bands is None)
-    assert tf._scan_perm_id == jf._scan_perm_id
+    assert (tf._numeric.planes is None) == (jf._scan_bands is None)
+    assert tf._numeric.chain == jf._scan_perm_id
     b = rng.random(200)
     np.testing.assert_allclose(tf.ldiv(b).numpy(),
                                spla.spsolve(A.tocsc(), b),
@@ -239,7 +247,7 @@ def test_plain_sweeps_match_serial_substitution(rng, R):
 @pytest.mark.parametrize("n", [7, 128, 257, 5000])
 def test_chain_ldiv_matches_jax_and_spsolve(rng, chain_only, n):
     A, jf, tf = _chain_pair(n)
-    assert tf._scan_bands is not None and tf._scan_perm_id
+    assert tf._numeric.planes is not None and tf._numeric.chain
     for shape in ((n,), (n, 3)):
         b = rng.random(shape)
         x = tf.ldiv(b)
@@ -295,11 +303,10 @@ def test_chain_host_refactor_redetects(rng):
                                rtol=RTOL, atol=ATOL)
     A2 = A.copy()
     A2.data = A2.data * (1 + 0.1 * rng.random(A2.nnz))
-    planes0 = F._scan_planes
-    gen0 = F._generation
+    num0 = F._numeric
     F.refactor(A2)
-    assert F._scan_bands is not None and F._scan_perm_id  # re-detected
-    assert F._scan_planes is not planes0 and F._generation == gen0 + 1
+    assert F._numeric.planes is not None and F._numeric.chain  # re-detected
+    assert F._numeric is not num0 and F._numeric.planes is not num0.planes
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
                                rtol=1e-9, atol=1e-11)
 
@@ -309,17 +316,49 @@ def test_device_refactor_disables_stale_bands(rng):
     b = rng.random(512)
     A2 = A.copy()
     A2.data = A2.data * 1.25
-    gen0 = F._generation
+    num0 = F._numeric
     F.refactor_numeric(A2)
-    assert F._scan_bands is None and not F._scan_perm_id  # would be stale
-    assert F._generation > gen0
+    assert F._numeric.planes is None and not F._numeric.chain  # would be stale
+    assert F._numeric is not num0
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
                                rtol=1e-8, atol=1e-10)
     # a re-pack of the device factors detects the chain again
     F.refactor(None)
-    assert F._scan_bands is not None and F._scan_perm_id
+    assert F._numeric.planes is not None and F._numeric.chain
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A2.tocsc(), b),
                                rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("refine_steps", [0, 1])
+def test_chain_refactor_step_takes_the_tile_solve(rng, refine_steps):
+    """On a chain solver the refactor-solve step solves on the tiles (its
+    spans hold ``lu.ldiv.launch``, no ``lu.ldiv.chain``) and leaves the
+    chain path on; ``refactor_numeric`` turns it off, with the step's
+    bits, and ``refactor(None)`` turns it on again."""
+    A, _, F = _chain_pair(300, "float32")
+    step = F.make_refactor_solve_step(refine_steps=refine_steps)
+    assert F.solve_path == "chain"
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.1 * rng.random(A2.nnz))
+    b = torch.as_tensor(rng.random((300, 2)), dtype=torch.float32)
+    trace.reset()
+    x = step(A2.data, b)
+    got = trace.totals()
+    assert got["lu.ldiv.launch"][0] == 1 + refine_steps
+    assert "lu.ldiv.chain" not in got
+    assert F.solve_path == "chain"
+    trace.reset()
+    F.ldiv(b)
+    assert "lu.ldiv.chain" in trace.totals()
+    assert "lu.ldiv.launch" not in trace.totals()
+    F.refactor_numeric(A2)
+    assert F.solve_path == "tiles"
+    assert torch.equal(F.ldiv(b, refine_steps=refine_steps), x)
+    F.refactor(None)
+    assert F.solve_path == "chain"
+    y = F.ldiv(b)
+    berr = (F.matvec(y) - b).norm() / (spla.norm(A2) * y.norm() + b.norm())
+    assert float(berr) < 1e-6  # normwise backward error, float32
 
 
 def test_factorize_device_chain_solves_through_waves(rng):
@@ -329,7 +368,7 @@ def test_factorize_device_chain_solves_through_waves(rng):
     F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
         **_chain_cfg(factorize="auto")), device="cpu")
     assert F.config.factorize == "device"
-    assert F._scan_bands is None and not F._scan_perm_id
+    assert F._numeric.planes is None and not F._numeric.chain
     b = rng.random(300)
     np.testing.assert_allclose(F.ldiv(b).numpy(), spla.spsolve(A.tocsc(), b),
                                rtol=1e-8, atol=1e-10)

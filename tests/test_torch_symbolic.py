@@ -59,8 +59,8 @@ def test_plan_arrays_equal_jax(rng, family, ordering):
     K, c = tf.plan.lplan.K, tf.plan.cs
     pidx = np.full((K + 1) * c, -1)
     pidx[: tf.plan.n] = jf._pvec
-    assert np.array_equal(tf._pidx.numpy(), pidx)
-    assert np.array_equal(tf._qidx.numpy(), jf._qvec)
+    assert np.array_equal(tf._numeric.pidx.numpy(), pidx)
+    assert np.array_equal(tf._numeric.qidx.numpy(), jf._qvec)
     if ordering == "nd":
         for k in ("src", "pos", "data_src"):
             assert np.array_equal(tf._ext[k], jf._ext[k]), k

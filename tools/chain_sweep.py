@@ -7,7 +7,7 @@ tree and version by version.
 Needs one CUDA card and ``nvcc``. Cells: BASELINE config 1's ``ldiv``
 (``chip_smoke._config1_solver``: ``laplacian_1d(20000)``, natural,
 ``pivot_threshold=0.0``, chunk_size=128, float32) at R = 1 and 16, and
-the tile solve on the same factors (``F._direct_solve``: one
+the tile solve on the same factors (``F._numeric.tiles``: one
 ``ldiv_fused`` launch, what ``ldiv`` would run without the chain
 dispatch), and ``bidiag_ldiv`` on seeded random planes at n = 1,048,577,
 R = 1 and 16, float32 and float64, both sweeps. Each cell is timed eager
@@ -23,7 +23,8 @@ chain and tiles on the same right-hand sides.
 unpacked under the gitignored ``_trees/``), each in a process of its own
 that imports and builds that checkout's package; trees run in the order
 given (a name may repeat, for turns). Without ``--tree`` this checkout
-runs.
+runs. A tree must keep its solver's device state in one ``F._numeric``
+(``solve.DeviceFactors``), as this one does.
 
 ``NAME=PATH.cu`` adds versions of ``csrc/bidiag.cu`` with this
 checkout's C interface: each is built alone into a side library (one
@@ -60,9 +61,9 @@ def _cells(cs, rng):
         b = torch.as_tensor(rng.random((F1.n, R)), dtype=torch.float32,
                             device="cuda")
         cells.append((f"config1 f32 R={R}",
-                      lambda b=b: F1._chain_solve(b)))
+                      lambda b=b: F1._numeric.solve(b)))
         cells.append((f"config1 f32 R={R} tiles",
-                      lambda b=b: F1._direct_solve(b)))
+                      lambda b=b: F1._numeric.tiles(b)))
     for dt in (torch.float32, torch.float64):
         lower, upper = cs._random_planes(rng, BIG_N, dt)
         for R in (1, 16):
@@ -88,8 +89,8 @@ def _config1_errors(cs, rng) -> dict:
         b = torch.as_tensor(B, dtype=torch.float32, device="cuda")
         B = b.double().cpu().numpy()
         ref = dense_f64.solve(A, B, "cuda")
-        for label, x in ((f"config1 f32 R={R}", F._chain_solve(b)),
-                         (f"config1 f32 R={R} tiles", F._direct_solve(b))):
+        for label, x in ((f"config1 f32 R={R}", F._numeric.solve(b)),
+                         (f"config1 f32 R={R} tiles", F._numeric.tiles(b))):
             X = x.double().cpu().numpy()
             out[label] = (float(dense_f64.forward_errors(X, ref).max()),
                           float(dense_f64.backward_errors(A, X, B,

@@ -11,7 +11,7 @@ nd, nd_cutoff=512), or the one ``--deployment`` names (``DEPLOYMENTS``:
 the benchmark's block-banded plans), in float32, float64 and float32
 with the bfloat16 tile stream, at each R of ``--rs``, it records:
 
-* ``F._direct_solve(b)`` per solve (the solver's own route: one
+* ``F._numeric.tiles(b)`` per solve (the solver's own route: one
   ``ldiv_fused`` launch where the tree has it), eager (CUDA events,
   ``chip_smoke._median_ms``) and by CUDA-graph replay
   (``chip_smoke._graph_ms``);
@@ -36,7 +36,9 @@ beside the width the wrapper's rule picks.
 the repository (``PATH`` holds ``tpu_sparse_lu_torch/``), each in a
 process of its own that imports and builds that checkout's package; the
 trees run in the order given (a name may repeat, for turns), and without
-``--tree`` only this checkout runs. Each tree's numbers also go to
+``--tree`` only this checkout runs. A tree must keep its solver's device
+state in one ``F._numeric`` (``solve.DeviceFactors``), as this one does.
+Each tree's numbers also go to
 ``OUT/NAME_<i>.json`` (``--out``, by default
 ``tpu_sparse_lu_torch/_build/ldiv_sweep``).
 
@@ -131,11 +133,12 @@ def _fused(F, b, strip=None):
     width ``strip`` (default: the rule's)."""
     from tpu_sparse_lu_torch.ops import fused_ldiv as FL
 
-    L, U = F.ldata, F.udata
+    N = F._numeric
+    L, U = N.ldata, N.udata
     if L.tiles_bf16 is not None:
-        return FL.fused_ldiv_bf16(b, F._ldiv_sched, L.tiles_bf16,
-                                  U.tiles_bf16, F._rs, strip=strip)
-    return FL.fused_ldiv(b, F._ldiv_sched, L.tiles_t, U.tiles_t, F._rs,
+        return FL.fused_ldiv_bf16(b, N.sched, L.tiles_bf16, U.tiles_bf16,
+                                  N.rs, strip=strip)
+    return FL.fused_ldiv(b, N.sched, L.tiles_t, U.tiles_t, N.rs,
                          strip=strip)
 
 
@@ -147,9 +150,9 @@ def _chosen_strip(F, R):
 
     if not hasattr(FL, "launch_strip"):  # an older tree: R alone
         return FL.strip_width(R)
-    name = ("ldiv_fused_bf16" if F.ldata.tiles_bf16 is not None else
+    name = ("ldiv_fused_bf16" if F._numeric.ldata.tiles_bf16 is not None else
             f"ldiv_fused_{FL._KERNEL_DTYPES[F.dtype]}")
-    return FL.launch_strip(name, F._ldiv_sched, R,
+    return FL.launch_strip(name, F._numeric.sched, R,
                            torch.device("cuda", torch.cuda.current_device()))
 
 
@@ -163,8 +166,8 @@ def _stream_kw():
 def _waves(F, xw, kw):
     from tpu_sparse_lu_torch.solve import blocked_tri_solve
 
-    blocked_tri_solve(F.ldata, xw, **kw)
-    blocked_tri_solve(F.udata, xw, **kw)
+    blocked_tri_solve(F._numeric.ldata, xw, **kw)
+    blocked_tri_solve(F._numeric.udata, xw, **kw)
     return xw
 
 
@@ -172,10 +175,9 @@ def _route32(F, b, kw):
     """perm_gather, the L and U waves, perm_gather: 2 + waves launches."""
     from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather
 
-    R = b.shape[1]
-    xw = perm_gather(b, F._pidx, F._rs).view(F.plan.lplan.K + 1, F.plan.cs,
-                                             R)
-    return perm_gather(_waves(F, xw, kw).view(-1, R), F._qidx)
+    R, N = b.shape[1], F._numeric
+    xw = perm_gather(b, N.pidx, N.rs).view(F.plan.lplan.K + 1, F.plan.cs, R)
+    return perm_gather(_waves(F, xw, kw).view(-1, R), N.qidx)
 
 
 def _kernel_events(path):
@@ -236,7 +238,7 @@ def _critical_path(F, R):
     width the wrapper's rule picks)."""
     strips = -(-R // _chosen_strip(F, R))
     return {f: [int(w.dst.shape[0]) * strips for w in d.waves]
-            for f, d in (("L", F.ldata), ("U", F.udata))}
+            for f, d in (("L", F._numeric.ldata), ("U", F._numeric.udata))}
 
 
 KINDS = ("perm-in", "L diagonal", "L off-diagonal", "U diagonal",
@@ -415,7 +417,7 @@ def _clocks(cs_mod, F, lib, b, strip):
     lib.ldiv_fused_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.ldiv_fused_clocks.restype = ctypes.c_int
     _use(lib)
-    S = F._ldiv_sched
+    S = F._numeric.sched
     strips = -(-b.shape[1] // strip)
     n_t = S.n_tasks * strips
     if n_t > 1 << 16:
@@ -549,8 +551,8 @@ def _versions_run(cs_mod, args, rng):
                     for R, b in bs.items():
                         t = times.setdefault((name, dtype, stream, R), [])
                         t.append((cs_mod._median_ms(
-                            lambda _: F._direct_solve(b)),
-                            cs_mod._graph_ms(lambda: F._direct_solve(b))))
+                            lambda _: F._numeric.tiles(b)),
+                            cs_mod._graph_ms(lambda: F._numeric.tiles(b))))
             if args.clocks and dtype == "float32" and stream == "float32":
                 b = bs[16] if 16 in bs else bs[max(bs)]
                 for w in sorted({_chosen_strip(F, b.shape[1]),
@@ -588,7 +590,7 @@ def _strips_run(cs_mod, args, rng):
         F = _solver(cs_mod, dtype, stream, args.deployment)
         if F is None:
             continue
-        S = F._ldiv_sched
+        S = F._numeric.sched
         for R in Rs:
             b = torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype,
                                 device="cuda")
@@ -669,30 +671,30 @@ def _worker(args) -> int:
             print(f"[{args.worker}] {dtype}/{stream}: not in this tree",
                   flush=True)
             continue
-        fused = hasattr(F, "_ldiv_sched")
+        fused = F._numeric.sched is not None
         for R in Rs:
             b = torch.as_tensor(rng.random((F.n, R)), dtype=F.dtype,
                                 device="cuda")
             x0 = _route32(F, b, kw)  # warm
             from tpu_sparse_lu_torch.ops.fused_ldiv import perm_gather
 
-            xw0 = perm_gather(b, F._pidx, F._rs).view(
+            xw0 = perm_gather(b, F._numeric.pidx, F._numeric.rs).view(
                 F.plan.lplan.K + 1, F.plan.cs, R)
             work = xw0.clone()
             cell = {"dtype": dtype, "stream": stream, "R": R,
                     "fused": fused,
                     "critical_path": _critical_path(F, R)}
             m, g = cs_mod._median_ms, cs_mod._graph_ms
-            cell["direct_eager_ms"] = m(lambda _: F._direct_solve(b))
+            cell["direct_eager_ms"] = m(lambda _: F._numeric.tiles(b))
             cell["route32_eager_ms"] = m(lambda _: _route32(F, b, kw))
             cell["waves_eager_ms"] = m(lambda x: _waves(F, x, kw),
                                        setup=xw0.clone)
-            cell["direct_graph_ms"] = g(lambda: F._direct_solve(b))
+            cell["direct_graph_ms"] = g(lambda: F._numeric.tiles(b))
             cell["route32_graph_ms"] = g(lambda: _route32(F, b, kw))
             cell["waves_graph_ms"] = g(lambda: _waves(F, work, kw),
                                        setup=lambda: work.copy_(xw0))
             if fused:
-                same = torch.equal(F._direct_solve(b), x0)
+                same = torch.equal(F._numeric.tiles(b), x0)
                 cell["fused_equals_route32"] = bool(same)
             if R == 16:
                 tag = f"{args.worker}_{dtype}_{stream}"
@@ -700,7 +702,7 @@ def _worker(args) -> int:
                     out_dir, lambda: _route32(F, b, kw), tag + "_r32")
                 if fused:
                     cell["profile_direct"] = _profile(
-                        out_dir, lambda: F._direct_solve(b), tag + "_direct")
+                        out_dir, lambda: F._numeric.tiles(b), tag + "_direct")
             res["cells"].append(cell)
             print(f"[{args.worker}] {dtype}/{stream} R={R}: direct "
                   f"{cell['direct_eager_ms']:.4f} eager / "

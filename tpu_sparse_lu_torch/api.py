@@ -36,6 +36,7 @@ the two kernels of ``ops/assembly.py`` and the one launch of
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import warnings
@@ -45,22 +46,17 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .ops.bidiag_ldiv import bidiag_ldiv, bidiag_ldiv_plain
-from .ops.fused_ldiv import (
-    build_ldiv_schedule,
-    fused_ldiv,
-    fused_ldiv_bf16,
-    perm_gather,
-    perm_gather_plain,
-)
+from .ops.bidiag_ldiv import bidiag_ldiv
+from .ops.fused_ldiv import build_ldiv_schedule
 from .ops.scan_solve import bidiag_bands, chain_planes
 from .pack import pack_factor
 from .solve import (
+    DeviceFactors,
     TriKernelData,
     block_rhs,
     blocked_tri_solve,
     prepare_tri_kernel,
-    tri_kernel_from_bank,
+    refine,
     unblock_rhs,
 )
 from .symbolic import (
@@ -150,8 +146,10 @@ class ParallelSparseLU:
     Exposes the reference struct's quantities (src/SharedMemSparseLU.jl:
     43-62): ``m, n, L, U, p, q, Rs`` with
     ``L @ U == (Rs[:, None] * A)[p][:, q]``, plus the static
-    :class:`SymbolicPlan` and the device-resident tile banks. ``device`` is
-    required: the solver never picks one on its own.
+    :class:`SymbolicPlan`. Everything a solve reads on the device is one
+    :class:`~tpu_sparse_lu_torch.solve.DeviceFactors`, ``_numeric``,
+    replaced whole by every re-pack and device refactorization. ``device``
+    is required: the solver never picks one on its own.
     """
 
     def __init__(
@@ -533,8 +531,8 @@ class ParallelSparseLU:
             M.sort_indices()
             return M
 
-        self._factors.L = tocsc(self.plan.lplan, self.ldata)
-        self._factors.U = tocsc(self.plan.uplan, self.udata)
+        self._factors.L = tocsc(self.plan.lplan, self._numeric.ldata)
+        self._factors.U = tocsc(self.plan.uplan, self._numeric.udata)
         # the device refactorization also recomputed the row equilibration
         self.plan.Rs = np.asarray(self.Rs, dtype=np.float64)
         # re-plan on the SAME tile sets so the per-nonzero pack maps fit
@@ -580,17 +578,14 @@ class ParallelSparseLU:
         """Pack the factor nonzeros into tiles, invert the diagonal tiles
         and build the wave schedules, the permutation vectors and, at
         ``tri_mode="inv"``, the task list of the one-launch solve (the
-        reference's allocate_chunks + fill_chunks!, src:151-243), then
-        detect a bidiagonal chain (:meth:`_prepare_scan_path`). The bank
-        has one layout in every mode: the inverses are made in
-        ``"trsm"`` too (``lsolve``/``rsolve`` and the other modes share
-        the waves)."""
+        reference's allocate_chunks + fill_chunks!, src:151-243), and the
+        chain planes of bidiagonal factors (:meth:`_chain_planes`): a new
+        :class:`DeviceFactors`. The bank has one layout in every mode: the
+        inverses are made in ``"trsm"`` too (``lsolve``/``rsolve`` and the
+        other modes share the waves)."""
         with span("lu.setup.device"):
             plan, dev = self.plan, self.device
             mode = self.config.tri_mode
-            # numeric-state generation: a make_f64_ldiv callable records it and
-            # refuses to run once it moved
-            self._generation = getattr(self, "_generation", 0) + 1
             # only the one-launch solve reads a bfloat16 stream
             bf16 = self.config.stream_dtype == "bfloat16" and mode == "inv"
 
@@ -600,8 +595,6 @@ class ParallelSparseLU:
                 return prepare_tri_kernel(tplan, *pack_factor(tplan, nz),
                                           bf16_stream=bf16)
 
-            self.ldata: TriKernelData = tri(plan.lplan, self._factors.L)
-            self.udata: TriKernelData = tri(plan.uplan, self._factors.U)
             # ldiv permutations (src:324-339), composed with the nd embedding:
             #   wrk[i] = (Rs ⊙ b_ext)[p[i]],  b_ext[e] = b[ext_src[e]]
             #   x[j]   = wrk[qinv[ext_pos[j]]]
@@ -615,68 +608,63 @@ class ParallelSparseLU:
             K, cs = plan.lplan.K, plan.cs
             pidx = np.full((K + 1) * cs, -1, dtype=np.int32)
             pidx[: plan.n] = pvec
-            self._pidx = torch.as_tensor(pidx, device=dev)
-            self._qidx = torch.as_tensor(np.asarray(qvec, dtype=np.int32),
-                                         device=dev)
             # the whole solve as one task list (ops/fused_ldiv.py); a device
             # refactorization changes only the banks and keeps it
-            self._ldiv_sched = None
+            sched = None
             if mode == "inv":
-                self._ldiv_sched = build_ldiv_schedule(
+                sched = build_ldiv_schedule(
                     plan.lplan, plan.uplan, pidx, qvec, self.n, cs, dev)
-            # Rs in input row order: the perm-in scales before it permutes
-            self._rs = torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
-                                       device=dev)
+            self._numeric = DeviceFactors(
+                ldata=tri(plan.lplan, self._factors.L),
+                udata=tri(plan.uplan, self._factors.U),
+                rs=torch.as_tensor(np.asarray(rs_in), dtype=self.dtype,
+                                   device=dev),
+                pidx=torch.as_tensor(pidx, device=dev),
+                qidx=torch.as_tensor(np.asarray(qvec, dtype=np.int32),
+                                     device=dev),
+                sched=sched, mode=mode, **self._chain_planes())
             # the nd embedding's position of each input row, for the Rs of a
             # device refactorization
             self._ext_pos_dev = None if self._ext is None else torch.as_tensor(
                 self._ext["pos"], dtype=torch.int64, device=dev)
-            self._prepare_scan_path()
 
-    def _prepare_scan_path(self) -> None:
+    def _chain_planes(self) -> dict:
         """Detect bidiagonal factors (1-D chain matrices) and stage the
         chain solve (``ops/bidiag_ldiv.py``): a chain's chunk DAG has no
         width for the tile waves, one level per chunk, while the chain's
         substitution is one prefix scan.
 
-        Sets ``_scan_bands`` (``ld, lo, ud, uo`` on the device; ``None``
-        when a factor is not bidiagonal), ``_scan_perm_id`` (no nd
-        embedding and ``p``, ``q`` the identity: ``ldiv`` may run the
-        chain solve) and ``_scan_planes`` (the affine coefficient planes of
-        ``ops/scan_solve.chain_planes``). Runs on every re-pack, so each
-        factorization is detected anew.
+        Returns the :class:`DeviceFactors` fields ``planes`` (the affine
+        coefficient planes of ``ops/scan_solve.chain_planes`` on the
+        device; absent when a factor is not bidiagonal) and ``chain`` (no
+        nd embedding and ``p``, ``q`` the identity: ``ldiv`` runs the chain
+        solve). Runs on every re-pack, so each factorization is detected
+        anew.
         """
-        self._scan_bands = self._scan_planes = None
-        self._scan_perm_id = False
         lb = bidiag_bands(self._factors.L, lower=True)
         if lb is None:
-            return
+            return {}
         ub = bidiag_bands(self._factors.U, lower=False)
         if ub is None:
-            return
+            return {}
         n = self.plan.n
-        self._scan_perm_id = (
+        chain = (
             self._ext is None
             and np.array_equal(self.plan.p, np.arange(n))
             and np.array_equal(self.plan.q, np.arange(n))
         )
         np_dt = np.float32 if self.dtype == torch.float32 else np.float64
-
-        def dev(v):
-            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
-
-        self._scan_bands = {"ld": dev(lb["diag"]), "lo": dev(lb["off"]),
-                            "ud": dev(ub["diag"]), "uo": dev(ub["off"])}
-        rs = self.plan.Rs if self._scan_perm_id else None
-        self._scan_planes = {k: dev(v) for k, v in
-                             chain_planes(lb, ub, rs, np_dt).items()}
+        rs = self.plan.Rs if chain else None
+        planes = {k: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+                  for k, v in chain_planes(lb, ub, rs, np_dt).items()}
+        return {"planes": planes, "chain": chain}
 
     @property
     def solve_path(self) -> str:
         """Which direct solve ``ldiv`` runs: ``"chain"``, one launch of
         the chain kernel (bidiagonal factors under identity permutations,
-        :meth:`_prepare_scan_path`), or ``"tiles"``, the tile solve."""
-        return "chain" if self._scan_perm_id else "tiles"
+        :meth:`_chain_planes`), or ``"tiles"``, the tile solve."""
+        return "chain" if self._numeric.chain else "tiles"
 
     @property
     def _stream_dt(self) -> torch.dtype:
@@ -685,9 +673,10 @@ class ParallelSparseLU:
         return getattr(torch, self.config.stream_dtype)
 
     # -- solves -------------------------------------------------------------
-    def _as_rhs(self, b, n=None):
+    def _as_rhs(self, b, n=None, dtype=None):
         n = self.n if n is None else n
-        b = torch.as_tensor(b, dtype=self.dtype, device=self.device)
+        b = torch.as_tensor(b, dtype=self.dtype if dtype is None else dtype,
+                            device=self.device)
         if b.dim() not in (1, 2) or b.shape[0] != n:
             raise ValueError(
                 f"`b` does not have same size as F: {tuple(b.shape)} vs n={n}"
@@ -697,78 +686,28 @@ class ParallelSparseLU:
             b = b[:, None]
         return b.contiguous(), squeeze
 
-    def _direct_solve(self, b: torch.Tensor, *,
-                      plain: bool = False) -> torch.Tensor:
-        """``x = A⁻¹ b`` for a contiguous (n, R) tensor on the device:
-        perm-in with ``Rs``, the L levels, the U levels, perm-out — at
-        ``tri_mode="inv"`` in one launch of ``fused_ldiv``, in the other
-        modes as ``perm_gather``, the level steps of ``blocked_tri_solve``
-        and ``perm_gather``.
-
-        ``plain=True`` runs the plain PyTorch version of the perms and of
-        every wave instead; it exists to hold the kernel path against it
-        on the card.
-        """
-        return self._solve_with(self.ldata, self.udata, self._rs, b,
-                                plain=plain)
-
-    def _solve_with(self, ldata: TriKernelData, udata: TriKernelData,
-                    rs: torch.Tensor, b: torch.Tensor, *,
-                    plain: bool = False) -> torch.Tensor:
-        """:meth:`_direct_solve` with the given banks and row scaling.
-        Reads the tile stream: the bfloat16 banks where there are some."""
-        with span("lu.ldiv.launch"):
-            mode = self.config.tri_mode
-            if plain or mode != "inv":
-                gather = perm_gather_plain if plain else perm_gather
-                R = b.shape[1]
-                xw = gather(b, self._pidx, rs).view(
-                    self.plan.lplan.K + 1, self.plan.cs, R)
-                blocked_tri_solve(ldata, xw, mode=mode, plain=plain,
-                                  stream=True)
-                blocked_tri_solve(udata, xw, mode=mode, plain=plain,
-                                  stream=True)
-                return gather(xw.view(-1, R), self._qidx)
-            if ldata.tiles_bf16 is not None:
-                return fused_ldiv_bf16(b, self._ldiv_sched, ldata.tiles_bf16,
-                                       udata.tiles_bf16, rs)
-            return fused_ldiv(b, self._ldiv_sched, ldata.tiles_t,
-                              udata.tiles_t, rs)
-
-    def _chain_solve(self, b: torch.Tensor, *,
-                     plain: bool = False) -> torch.Tensor:
-        """``x = A⁻¹ b`` on a chain (``_scan_perm_id``): ``Rs`` folded into
-        the forward sweep, then the backward sweep, one kernel launch.
-        ``plain=True`` runs the plain PyTorch scan."""
-        with span("lu.ldiv.chain"):
-            sp_ = self._scan_planes
-            solve = bidiag_ldiv_plain if plain else bidiag_ldiv
-            return solve(b, lower=(sp_["aL"], sp_["sL"]),
-                         upper=(sp_["aU"], sp_["sU"]))
-
-    def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
-        """One direct solve of ``ldiv``: the chain solve when the factors
-        are a chain under identity permutations, else the tile solve."""
-        if self._scan_perm_id:
-            return self._chain_solve(b)
-        return self._direct_solve(b)
+    def _residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``b - A x`` in the solver's dtype, with the current values."""
+        return b - self.matvec(x)
 
     def lsolve(self, b) -> torch.Tensor:
         """Solve ``L y = b`` (reference ``lsolve!``, src:349-367).
 
         Under ordering="nd" the factors live on the extended matrix:
         ``b`` has length ``n_factor``."""
-        if self._scan_bands is not None:
-            sp_ = self._scan_planes
-            return self._chain_tri_solve(b, lower=(sp_["aL"], sp_["iL"]))
-        return self._tri_solve(self.ldata, self.plan.lplan, b)
+        num = self._numeric
+        if num.planes is not None:
+            p = num.planes
+            return self._chain_tri_solve(b, lower=(p["aL"], p["iL"]))
+        return self._tri_solve(num.ldata, self.plan.lplan, b)
 
     def rsolve(self, b) -> torch.Tensor:
         """Solve ``U y = b`` (reference ``rsolve!``, src:374-392)."""
-        if self._scan_bands is not None:
-            sp_ = self._scan_planes
-            return self._chain_tri_solve(b, upper=(sp_["aU"], sp_["sU"]))
-        return self._tri_solve(self.udata, self.plan.uplan, b)
+        num = self._numeric
+        if num.planes is not None:
+            p = num.planes
+            return self._chain_tri_solve(b, upper=(p["aU"], p["sU"]))
+        return self._tri_solve(num.udata, self.plan.uplan, b)
 
     def _chain_tri_solve(self, b, **planes):
         b, squeeze = self._as_rhs(b, self.n_factor)
@@ -801,13 +740,8 @@ class ParallelSparseLU:
                 raise ValueError(f"`F` is not square: m={self.m}, "
                                  f"n={self.n}")
             b, squeeze = self._as_rhs(b)
-        x = self._solve_once(b)
-        for _ in range(refine_steps):
-            with span("lu.ldiv.residual"):
-                r = b - self.matvec(x)
-            d = self._solve_once(r)
-            with span("lu.ldiv.residual"):
-                x = x + d
+        solve = self._numeric.solve
+        x = refine(solve, self._residual, b, solve(b), refine_steps)
         return x[:, 0] if squeeze else x
 
     solve = ldiv
@@ -992,12 +926,51 @@ class ParallelSparseLU:
         ``plain=True`` runs the plain PyTorch version of every kernel; it
         exists to hold the kernel path against it on the card.
         """
-        from .refactor import refactor_same_pattern
+        A = sp.csc_matrix(A)
+        A.sort_indices()
+        if ((A.indptr.tobytes(), A.indices.tobytes())
+                != self._a_pattern_sig):
+            raise ValueError(
+                "refactor_numeric requires the same sparsity pattern as the "
+                "matrix this factorization was built from; use refactor() "
+                "for pattern changes (reference src:265-273 reallocate path)"
+            )
+        self.enable_device_refactor()
+        # the nd value mapping is folded into the assembly plan (data_src),
+        # so the original values go straight in (in float64: the solver
+        # keeps them for make_f64_ldiv's residual)
+        self._refactor_values(
+            torch.as_tensor(A.data, dtype=torch.float64, device=self.device),
+            plain=plain)
+        if check:
+            d = self.refactor_diagnostics
+            growth = float(d["growth"])
+            min_piv = float(d["min_pivot"])
+            if (not np.isfinite(growth) or growth > growth_limit
+                    or min_piv == 0.0):
+                self.refactor(A)  # host path: re-pivots
+                return False
+        return True
 
-        return refactor_same_pattern(
-            self, sp.csc_matrix(A), check=check, growth_limit=growth_limit,
-            plain=plain,
-        )
+    def _refactor_values(self, a_data: torch.Tensor, *,
+                         plain: bool = False) -> None:
+        """Refactorize on the device from new nonzero values of A (a tensor
+        on the solver's device, original CSC order, float64 or the solver's
+        dtype), with the device-refactor plan built: a new numeric state
+        from :meth:`DeviceFactors.with_banks`, without synchronising the
+        device. The chain path holds the last re-pack's values, so the
+        tile solve serves until the next one."""
+        from .refactor import refactor_pipeline
+
+        out = refactor_pipeline(a_data.to(self.dtype), self._refactor_dev,
+                                plain=plain)
+        self._numeric = self._numeric.with_banks(out, self._ext_pos_dev)
+        # the host csc factor values (F.L/F.U) materialize lazily from these
+        self._factors_stale = True
+        self.refactor_diagnostics = {"min_pivot": out["min_pivot"],
+                                     "growth": out["growth"]}
+        self._factors.Rs = out["rs"]  # converted to NumPy when read
+        self._set_matrix_values(a_data)
 
     def make_refactor_solve_step(self, *, refine_steps: int = 0):
         """The fused step of a time-stepper: ``step(a_data, b) -> x``, with
@@ -1038,22 +1011,14 @@ class ParallelSparseLU:
                 b, squeeze = self._as_rhs(b)
             out = refactor_pipeline(a, dev)
             with span("lu.refactor.banks"):
-                ldata = tri_kernel_from_bank(self.ldata, out["lbank"],
-                                             out["ldiag"])
-                udata = tri_kernel_from_bank(self.udata, out["ubank"],
-                                             out["udiag"])
-                rs = out["rs"]
-                if self._ext_pos_dev is not None:
-                    rs = rs[self._ext_pos_dev]
-            x = self._solve_with(ldata, udata, rs, b)
-            for i in range(steps):
-                with span("lu.ldiv.residual"):
-                    if i == 0:
-                        A_new = self._csr_matrix(a)
-                    r = b - A_new @ x
-                d = self._solve_with(ldata, udata, rs, r)
-                with span("lu.ldiv.residual"):
-                    x = x + d
+                numeric = self._numeric.with_banks(out, self._ext_pos_dev)
+            # with new banks the tile solve serves, on a chain too
+            x = numeric.tiles(b)
+            if steps:
+                # A from a_data, built at the first residual
+                A_new = functools.cache(lambda: self._csr_matrix(a))
+                x = refine(numeric.tiles, lambda b, x: b - A_new() @ x, b,
+                           x, steps)
             return x[:, 0] if squeeze else x
 
         return step
@@ -1085,28 +1050,20 @@ class ParallelSparseLU:
                 f"was built with dtype={self.dtype}")
         A64 = self._csr_matrix(self._a64)
         steps = int(refine_steps)
-        n = self.n
-        gen = self._generation
+        numeric = self._numeric
+
+        def solve32(r):
+            return numeric.solve(r.float()).double()
 
         def solve(b):
-            if self._generation != gen:
+            if self._numeric is not numeric:
                 raise RuntimeError(
                     "stale make_f64_ldiv solve: a refactorization replaced "
                     "the numeric state this callable was built on; call "
-                    "make_f64_ldiv() again (generation "
-                    f"{gen} -> {self._generation})")
-            b = torch.as_tensor(b, dtype=torch.float64, device=self.device)
-            if b.dim() not in (1, 2) or b.shape[0] != n:
-                raise ValueError(f"`b` does not have same size as F: "
-                                 f"{tuple(b.shape)} vs n={n}")
-            squeeze = b.dim() == 1
-            if squeeze:
-                b = b[:, None]
-            b = b.contiguous()
-            x = self._solve_once(b.float()).double()
-            for _ in range(steps):
-                r = b - A64 @ x
-                x = x + self._solve_once(r.float()).double()
+                    "make_f64_ldiv() again")
+            b, squeeze = self._as_rhs(b, dtype=torch.float64)
+            x = refine(solve32, lambda b, x: b - A64 @ x, b, solve32(b),
+                       steps)
             return x[:, 0] if squeeze else x
 
         return solve
@@ -1191,11 +1148,8 @@ class ParallelSparseLU:
     def close(self) -> None:
         """Release the device buffers, the refactorization's included (the
         reference's exported ``cleanup_ParallelSparseLU!``, src:31)."""
-        self.ldata = self.udata = None
-        self._scan_bands = self._scan_planes = None
-        self._scan_perm_id = False
-        self._A_dev = self._a64 = self._pidx = self._qidx = self._rs = None
-        self._ldiv_sched = None
+        self._numeric = None
+        self._A_dev = self._a64 = None
         self._csr_pattern = self._csc_to_csr = self._ext_pos_dev = None
         self._init_refactor_state()
 

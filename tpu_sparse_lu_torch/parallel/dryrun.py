@@ -4,11 +4,11 @@ CPU: counterpart of ``__graft_entry__.dryrun_multichip``.
     python -m tpu_sparse_lu_torch.parallel.dryrun 4
 
 spawns four gloo ranks. Each rank refactorizes on its device with new
-values (``refactor_numeric_values``), then solves through the psum engine
-(the nested-dissection embedding too), the halo pipeline (replicated and
-distributed output) and the data-parallel engine, each checked by its
-residual. The spawner joins the ranks under a deadline and kills the
-survivors of a failure.
+values (``ParallelSparseLU._refactor_values``), then solves through the
+psum engine (the nested-dissection embedding too), the halo pipeline
+(replicated and distributed output) and the data-parallel engine, each
+checked by its residual. The spawner joins the ranks under a deadline and
+kills the survivors of a failure.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ def _rank(rank: int, world: int, url: str) -> None:
 
     from .. import ParallelSparseLU, SolverConfig
     from ..models import block_banded, poisson_2d
-    from ..refactor import refactor_numeric_values
     from .dp import make_dp_ldiv
     from .mesh import initialize_multihost, make_mesh
     from .pipeline_solve import make_pipeline_ldiv
@@ -61,7 +60,7 @@ def _rank(rank: int, world: int, url: str) -> None:
         # numeric refactorization on the device (new values, same pattern)
         rng = np.random.default_rng(1)
         new = A.data * (1.0 + 0.01 * rng.standard_normal(A.data.shape))
-        refactor_numeric_values(F, torch.as_tensor(new))
+        F._refactor_values(torch.as_tensor(new))
         b = torch.as_tensor(rng.random((F.n, world)), dtype=torch.float32)
         errs = {}
         # TP: the level-striped psum engine

@@ -582,7 +582,7 @@ def make_pipeline_ldiv(F, mesh, axis: str = "chunks",
     comm = Collectives(group, D, d)
     spp = row_src = None
     if not replicate:
-        qb = build_perm_blocks(F._qidx.cpu().numpy(), F.n, plan.cs,
+        qb = build_perm_blocks(F._numeric.qidx.cpu().numpy(), F.n, plan.cs,
                                n_in=plan.n)
         spp = build_sharded_perm_plan(qb, lp.Kl, D)
         replicate = spp is None
@@ -597,12 +597,13 @@ def make_pipeline_ldiv(F, mesh, axis: str = "chunks",
         R = b.shape[1]
         M = (autotune_micro_panels(R, D) if micro_panels is None
              else micro_panels)
-        xw = perm_gather(b, F._pidx, F._rs).view(K + 1, cs, R)
-        xw = pipeline_ldiv_pair(comm, lrp, F.ldata, urp, F.udata, xw,
+        num = F._numeric
+        xw = perm_gather(b, num.pidx, num.rs).view(K + 1, cs, R)
+        xw = pipeline_ldiv_pair(comm, lrp, num.ldata, urp, num.udata, xw,
                                 micro_panels=M, tri_mode=mode,
                                 shard_output=not replicate)
         if replicate:
-            x = perm_gather(xw.view(-1, R), F._qidx)
+            x = perm_gather(xw.view(-1, R), num.qidx)
             return x[:, 0] if squeeze else x
         from torch.distributed.tensor import DTensor, Shard
 

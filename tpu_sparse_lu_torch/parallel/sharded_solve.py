@@ -367,8 +367,9 @@ def make_sharded_ldiv(F, mesh, axis: str = "chunks", *,
     """A mesh-parallel ``ldiv`` for a ``ParallelSparseLU``: every rank of
     ``mesh`` calls ``solve(b)`` with the same ``b``, ``(n,)`` or ``(n,
     R)``; the solve runs level-striped over the ranks. Composes with
-    every ordering, the nd embedding included. Reads ``F``'s banks at
-    each call, so it serves after a refactorization of the same plan.
+    every ordering, the nd embedding included. Reads ``F``'s numeric
+    state (``F._numeric``) at each call, so it serves after a
+    refactorization of the same plan.
 
     Returns the solution on every rank, or with ``shard_output=True`` a
     ``DTensor`` sharded by rows over the mesh (``Shard(0)``, the JAX
@@ -396,8 +397,9 @@ def make_sharded_ldiv(F, mesh, axis: str = "chunks", *,
     def solve(b):
         b, squeeze = F._as_rhs(b)
         comm.reset()
-        x = sharded_ldiv(comm, plan, llev, ulev, F.ldata, F.udata, F._pidx,
-                         F._qidx, F._rs, b, tri_mode=mode)
+        num = F._numeric
+        x = sharded_ldiv(comm, plan, llev, ulev, num.ldata, num.udata,
+                         num.pidx, num.qidx, num.rs, b, tri_mode=mode)
         if squeeze:
             x = x[:, 0]
         if not shard_output:

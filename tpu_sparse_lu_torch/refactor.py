@@ -20,8 +20,10 @@ whole numeric phase runs on the solver's device:
   the elimination computed — with no host synchronisation.
 
 No numerical pivoting happens here (the point of the static-pivot
-design). ``refactor_same_pattern(check=True)`` detects value changes that
-broke the frozen pivots and falls back to the host ``refactor``.
+design). The functions here take plans and tensors only: the solver hands
+the banks to its numeric state (``solve.DeviceFactors.with_banks``), and
+``ParallelSparseLU.refactor_numeric(check=True)`` detects value changes
+that broke the frozen pivots and falls back to the host ``refactor``.
 """
 
 from __future__ import annotations
@@ -57,8 +59,6 @@ __all__ = [
     "RefactorDevice",
     "upload_refactor_plan",
     "refactor_pipeline",
-    "refactor_numeric_values",
-    "refactor_same_pattern",
 ]
 
 
@@ -445,67 +445,3 @@ def refactor_pipeline(a_data: torch.Tensor, dev: RefactorDevice, *,
         del store, eye, diag, loff, uoff, linv, uinv, parts
     return {"lbank": lbank, "ubank": ubank, "ldiag": ldiag, "udiag": udiag,
             "rs": rs, "min_pivot": min_piv, "growth": growth}
-
-
-def refactor_numeric_values(F, a_data: torch.Tensor, *,
-                            plain: bool = False) -> None:
-    """Refactorize from new nonzero values of A (a tensor on F's device,
-    original CSC order, float64 or F's dtype). Updates F's device solve
-    state in place without synchronising the device."""
-    from .solve import tri_kernel_from_bank
-
-    out = refactor_pipeline(a_data.to(F.dtype), F._refactor_dev,
-                            plain=plain)
-    F.ldata = tri_kernel_from_bank(F.ldata, out["lbank"], out["ldiag"])
-    F.udata = tri_kernel_from_bank(F.udata, out["ubank"], out["udiag"])
-    # new numeric state: a make_f64_ldiv callable made before is stale
-    F._generation += 1
-    # the host csc factor values (F.L/F.U) materialize lazily from these
-    F._factors_stale = True
-    # the chain path (api._prepare_scan_path) holds factor values from the
-    # last re-pack: stale now, so the tile solve serves until the next one
-    F._scan_bands = F._scan_planes = None
-    F._scan_perm_id = False
-    F.refactor_diagnostics = {"min_pivot": out["min_pivot"],
-                              "growth": out["growth"]}
-    rs = out["rs"]
-    # Rs in input row order: the perm-in scales before it permutes
-    F._rs = rs if F._ext is None else rs[F._ext_pos_dev]
-    F._factors.Rs = rs  # converted to NumPy when F.Rs is read
-    F._set_matrix_values(a_data)
-
-
-def refactor_same_pattern(F, A: sp.csc_matrix, *, check: bool = False,
-                          growth_limit: float = 1e7,
-                          plain: bool = False) -> bool:
-    """Entry point of :meth:`ParallelSparseLU.refactor_numeric`.
-
-    With ``check=True`` the static-pivot diagnostics (min |pivot|, pivot
-    growth) are synced after the device refactorization; if the new values
-    broke the frozen pivot order (non-finite growth, growth beyond
-    ``growth_limit``, or a zero pivot) it falls back to the host
-    ``refactor``, which re-pivots. Returns True when the device
-    factorization was kept."""
-    A = sp.csc_matrix(A)
-    A.sort_indices()
-    if (A.indptr.tobytes(), A.indices.tobytes()) != F._a_pattern_sig:
-        raise ValueError(
-            "refactor_numeric requires the same sparsity pattern as the "
-            "matrix this factorization was built from; use refactor() for "
-            "pattern changes (reference src:265-273 reallocate path)"
-        )
-    if not F.has_device_refactor:
-        F.enable_device_refactor()
-    # the nd value mapping is folded into the assembly plan (data_src), so
-    # the original values go straight in (in float64: F keeps them for
-    # make_f64_ldiv's residual)
-    a_data = torch.as_tensor(A.data, dtype=torch.float64, device=F.device)
-    refactor_numeric_values(F, a_data, plain=plain)
-    if check:
-        d = F.refactor_diagnostics
-        growth = float(d["growth"])
-        min_piv = float(d["min_pivot"])
-        if not np.isfinite(growth) or growth > growth_limit or min_piv == 0.0:
-            F.refactor(A)  # host path: re-pivots
-            return False
-    return True

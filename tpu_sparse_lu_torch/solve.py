@@ -16,6 +16,11 @@ The reference's ``lsolve!``/``rsolve!`` run a serial chunk loop of BLAS
   whose source chunk lies in the level (the reference's ``gemm!``, tiles
   pre-negated), in every mode.
 
+:class:`DeviceFactors` holds a solver's whole device numeric state and
+runs its direct solve: one launch of ``fused_ldiv`` at ``"inv"``, the
+level steps below in the other modes, or the chain kernel for bidiagonal
+factors. :func:`refine` is the one iterative-refinement loop.
+
 The right-hand side is carried chunk-blocked as ``xw : (K+1, cs, R)``;
 block ``K`` is the padding slot the JAX engine needs for its padded level
 arrays. The waves touch only real chunks, so it stays zero here. One
@@ -26,19 +31,26 @@ compile-time concern of XLA and is not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
+from .ops.bidiag_ldiv import bidiag_ldiv, bidiag_ldiv_plain
 from .ops.fused_ldiv import (
+    LdivSchedule,
     Wave,
     build_waves,
+    fused_ldiv,
+    fused_ldiv_bf16,
+    perm_gather,
+    perm_gather_plain,
     wave_apply,
     wave_apply_bf16,
     wave_apply_plain,
 )
 from .ops.tri_inverse import tri_inverse
 from .symbolic import TriPlan
+from .trace import span
 
 __all__ = [
     "TriKernelData",
@@ -47,6 +59,8 @@ __all__ = [
     "blocked_tri_solve",
     "block_rhs",
     "unblock_rhs",
+    "DeviceFactors",
+    "refine",
 ]
 
 
@@ -167,3 +181,108 @@ def unblock_rhs(xw: torch.Tensor, n: int) -> torch.Tensor:
     """Chunk-blocked (K+1, cs, R) → (n, R)."""
     Kp1, cs, R = xw.shape
     return xw.reshape(Kp1 * cs, R)[:n]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceFactors:
+    """A solver's device numeric state: everything a direct solve reads.
+
+    ``ldata``/``udata`` — the two factors' banks; ``rs`` — the row
+    equilibration in input-row order (the perm-in scales before it
+    permutes); ``pidx``/``qidx`` — the perm-in and perm-out indices,
+    composed with the nd embedding; ``sched`` — the one-launch solve's
+    task list (``tri_mode="inv"`` only, else None); ``mode`` — the
+    resolved ``tri_mode``; ``planes`` — the chain solve's affine planes
+    (``ops/scan_solve.chain_planes``) when both factors are bidiagonal,
+    else None; ``chain`` — :meth:`solve` runs the chain kernel (planes
+    under identity permutations, ``Rs`` folded into ``sL``).
+
+    Immutable: a new factorization is a new object (a re-pack, or
+    :meth:`with_banks`), so holding one is holding one numeric state.
+    """
+
+    ldata: TriKernelData
+    udata: TriKernelData
+    rs: torch.Tensor
+    pidx: torch.Tensor
+    qidx: torch.Tensor
+    sched: Optional[LdivSchedule]
+    mode: str
+    planes: Optional[dict] = None
+    chain: bool = False
+
+    def tiles(self, b: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """``x = A⁻¹ b`` for a contiguous (n, R) tensor on the device by
+        the tile solve: perm-in with ``rs``, the L levels, the U levels,
+        perm-out — at ``"inv"`` one launch of ``fused_ldiv`` on the tile
+        stream (the bfloat16 banks where there are some), in the other
+        modes ``perm_gather``, the level steps of :func:`blocked_tri_solve`
+        and ``perm_gather``.
+
+        ``plain=True`` runs the plain PyTorch version of the perms and of
+        every wave instead; it exists to hold the kernel path against it
+        on the card.
+        """
+        with span("lu.ldiv.launch"):
+            ldata, udata = self.ldata, self.udata
+            if plain or self.mode != "inv":
+                gather = perm_gather_plain if plain else perm_gather
+                R = b.shape[1]
+                xw = gather(b, self.pidx, self.rs).view(
+                    ldata.K + 1, ldata.tiles_t.shape[1], R)
+                blocked_tri_solve(ldata, xw, mode=self.mode, plain=plain,
+                                  stream=True)
+                blocked_tri_solve(udata, xw, mode=self.mode, plain=plain,
+                                  stream=True)
+                return gather(xw.view(-1, R), self.qidx)
+            if ldata.tiles_bf16 is not None:
+                return fused_ldiv_bf16(b, self.sched, ldata.tiles_bf16,
+                                       udata.tiles_bf16, self.rs)
+            return fused_ldiv(b, self.sched, ldata.tiles_t, udata.tiles_t,
+                              self.rs)
+
+    def solve(self, b: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """One direct solve of ``ldiv``: on a chain (``chain``) ``Rs``
+        folded into the forward sweep, then the backward sweep, one launch
+        of the chain kernel (``plain=True``: the plain PyTorch scan); else
+        :meth:`tiles`."""
+        if self.chain:
+            with span("lu.ldiv.chain"):
+                p = self.planes
+                run = bidiag_ldiv_plain if plain else bidiag_ldiv
+                return run(b, lower=(p["aL"], p["sL"]),
+                           upper=(p["aU"], p["sU"]))
+        return self.tiles(b, plain=plain)
+
+    def with_banks(self, out: dict,
+                   ext_pos: Optional[torch.Tensor]) -> "DeviceFactors":
+        """This state with the banks of a device refactorization (``out``
+        of ``refactor.refactor_pipeline``): the same plans, waves,
+        permutations and task list, ``rs`` mapped to input-row order
+        through ``ext_pos`` (the nd embedding's position of each input
+        row; None without one). The chain planes hold the values of the
+        last re-pack, so the tile solve serves until the next one."""
+        rs = out["rs"]
+        return DeviceFactors(
+            ldata=tri_kernel_from_bank(self.ldata, out["lbank"],
+                                       out["ldiag"]),
+            udata=tri_kernel_from_bank(self.udata, out["ubank"],
+                                       out["udiag"]),
+            rs=rs if ext_pos is None else rs[ext_pos],
+            pidx=self.pidx, qidx=self.qidx, sched=self.sched,
+            mode=self.mode)
+
+
+def refine(solve: Callable, residual: Callable, b: torch.Tensor,
+           x: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` sweeps of iterative refinement ``x += solve(b - A x)``
+    from ``x``: ``residual(b, x)`` gives ``b - A x`` (in the caller's
+    precision) and ``solve`` one direct solve of it, casts included. The
+    residual and the update are each a ``lu.ldiv.residual`` span."""
+    for _ in range(steps):
+        with span("lu.ldiv.residual"):
+            r = residual(b, x)
+        d = solve(r)
+        with span("lu.ldiv.residual"):
+            x = x + d
+    return x
