@@ -908,6 +908,35 @@ def _lu_tile_pairs(rng, tdt, cs):
         yield from zip(*outs)
 
 
+# the kinds of _special_tiles
+SPECIAL_TILES = ("sparse", "zero_last", "nan_last", "zero_mid", "nan_mid")
+
+
+def _special_tiles(rng, tdt, cs, n=3):
+    """{kind: n seeded (cs, cs) tiles} on the card for the zero and NaN
+    paths of the tile LU: ``sparse``, a dominant diagonal with 9 in 10
+    off-diagonal entries zero, a quarter of those -0.0 (most multipliers
+    divide a zero); ``zero_last`` / ``zero_mid``, row cs - 1 / cs // 2 of
+    those made zeros (an exact zero pivot, the middle one divided by);
+    ``nan_last`` / ``nan_mid``, a NaN on the diagonal there."""
+    import torch
+
+    eye = np.eye(cs, dtype=bool)
+    dense = rng.standard_normal((n, cs, cs)) + cs * eye
+    zeros = np.where(rng.random((n, cs, cs)) < 0.25, -0.0, 0.0)
+    base = np.where(eye | (rng.random((n, cs, cs)) < 0.1), dense, zeros)
+    out = {"sparse": base}
+    for tag, i in (("last", cs - 1), ("mid", cs // 2)):
+        z = base.copy()
+        z[:, i, :] = zeros[:, i, :]
+        out[f"zero_{tag}"] = z
+        m = base.copy()
+        m[:, i, i] = np.nan
+        out[f"nan_{tag}"] = m
+    return {k: torch.as_tensor(v, dtype=tdt, device="cuda")
+            for k, v in out.items()}
+
+
 def _elim_fused_equal(store, sched, want, tag):
     """The one launch on a copy of ``store`` at every grid of
     ``FUSED_GRIDS``, each output bit for bit equal to ``want`` (the

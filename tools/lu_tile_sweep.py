@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Build versions of the tile LU kernel (B2) side by side and time them.
 
-    python3 tools/lu_tile_sweep.py [--clocks] [NAME=PATH.cu ...]
+    python3 tools/lu_tile_sweep.py [--clocks] [NAME=PATH ...]
 
 Needs one CUDA card and ``nvcc``. Each version is a copy of
-``csrc/lu_tile.cu`` (the shipped one as ``shipped``, and any other source
-given as ``NAME=PATH``, e.g. an older commit's from ``git show``), with
-the ``csrc/*.cuh`` headers it includes pasted in (the kernel's body is
-``csrc/lu_tile.cuh``). Every
+``lu_tile.cu`` with the ``*.cuh`` headers it includes pasted in (the
+kernel's body is ``lu_tile.cuh``): the shipped ``csrc/`` as ``shipped``,
+and each ``NAME=PATH`` given, where ``PATH`` is a directory that holds
+that version's ``lu_tile.cu`` and headers (a ``csrc/``, or a checkout
+whose ``tpu_sparse_lu_torch/csrc/`` does, e.g. a ``git archive`` of an
+older commit unpacked under the gitignored ``_trees/``) or a ``.cu`` file,
+which takes the shipped headers. Every
 version is built alone into a side library under
 ``tpu_sparse_lu_torch/_build/sweep/`` (one ``nvcc -Xptxas -v`` each, all
 started together); the script prints the registers, stack and spills of
@@ -15,7 +18,12 @@ its ``lu_tile_kernel`` instantiations and their SASS instruction counts
 (``cuobjdump -sass``). Then, through the ``lu_tile`` wrapper pointed at
 each library in turn, it holds each version against ``lu_tile_plain``
 (``chip_smoke.LU_TOL``, seeded tiles at ``chip_smoke.LU_SIZES``, float32
-and float64, with and without the inverses) and times it by CUDA-graph
+and float64, with and without the inverses) and holds its factor, pivots,
+L^-1 and U^-1 bit for bit to the first version's (one line a version) on
+those tiles, on ``chip_smoke._special_tiles`` (mostly zero columns with
+-0.0 entries, zero and NaN pivots) at the same sizes, and on the shapes
+timed below, each with and without the inverses; the script exits 1 if
+any differ. It times each version by CUDA-graph
 replay (``chip_smoke._lu_tile_ms``) on the headline's 23 level-0 tiles
 and on config 2's one-tile level 0, float32 and float64, with both
 inverses and the LU alone. The versions are timed in turns, forwards then
@@ -61,24 +69,38 @@ def _phase_labels(text):
 _INCLUDE = re.compile(r'^#include "(\w+\.cuh)"$', re.M)
 
 
-def _inlined(text):
-    """A source with the ``csrc/*.cuh`` headers it includes pasted in, so
-    that a copy builds alone (the shipped kernel's body is
-    ``csrc/lu_tile.cuh``)."""
+def _inlined(src):
+    """The source ``src`` with the ``*.cuh`` headers it includes pasted
+    in, so that a copy builds alone: a ``lu_tile.cu`` takes the headers
+    beside it, any other ``.cu`` file the shipped ones."""
+    hdrs = src.parent if src.name == SHIPPED.name else SHIPPED.parent
     return _INCLUDE.sub(
-        lambda m: (SHIPPED.parent / m.group(1)).read_text()
-        .replace("#pragma once\n", ""), text)
+        lambda m: (hdrs / m.group(1)).read_text()
+        .replace("#pragma once\n", ""), src.read_text())
+
+
+def _source(path):
+    """A version's ``lu_tile.cu``: ``path`` itself, or in the directory
+    ``path`` or its ``tpu_sparse_lu_torch/csrc/``."""
+    path = Path(path)
+    if path.is_dir():
+        for d in (path, path / "tpu_sparse_lu_torch" / "csrc"):
+            if (d / SHIPPED.name).is_file():
+                return d / SHIPPED.name
+        raise SystemExit(f"no {SHIPPED.name} in {path} or its "
+                         f"tpu_sparse_lu_torch/csrc/")
+    return path
 
 
 def _versions(args):
     """[(name, source text, extra nvcc flags)], the shipped source
     first."""
-    srcs = [("shipped", _inlined(SHIPPED.read_text()), [])]
+    srcs = [("shipped", _inlined(SHIPPED), [])]
     for a in args.sources:
         name, _, path = a.partition("=")
         if not path:
-            raise SystemExit(f"expected NAME=PATH.cu, got {a!r}")
-        srcs.append((name, _inlined(Path(path).read_text()), []))
+            raise SystemExit(f"expected NAME=PATH, got {a!r}")
+        srcs.append((name, _inlined(_source(path)), []))
     if args.clocks:
         srcs += [(f"{name}_clocks", text, ["-DLU_TILE_CLOCKS"])
                  for name, text, _ in srcs]
@@ -160,25 +182,82 @@ def _bind(so):
     return lib
 
 
-def _check(name, rng):
-    """Hold the wrapper's current library against ``lu_tile_plain``."""
+def _outputs(name, cases):
+    """Every output of ``lu_tile`` through the wrapper's current library,
+    by label: seeded tiles (each held against ``lu_tile_plain``), the
+    special tiles, and ``cases``' shapes, each with both inverses and the
+    LU alone. The seeds are the same for every version."""
+    import numpy as np
     import torch
 
-    worst = {}
+    from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
+
+    def run(tiles, ids, inverses):
+        t = tiles.clone()
+        nb, cs = ids.shape[0], t.shape[1]
+        inv = ({k: torch.zeros((nb, cs, cs), dtype=t.dtype, device="cuda")
+                for k in ("linv", "uinv")} if inverses else {})
+        p = lu_tile(t, ids, **inv)
+        return [t[ids.long()], p, *inv.values()]
+
+    rng = np.random.default_rng(14)
+    outs, worst = {}, {}
     for dt in ("float32", "float64"):
+        tdt = getattr(torch, dt)
         for cs in chip_smoke.LU_SIZES:
-            for got, ref in chip_smoke._lu_tile_pairs(rng, getattr(torch, dt),
-                                                      cs):
-                r = chip_smoke._rel(got, ref)
+            got = []
+            for g, ref in chip_smoke._lu_tile_pairs(rng, tdt, cs):
+                r = chip_smoke._rel(g, ref)
                 if not r <= chip_smoke.LU_TOL[dt]:
                     raise AssertionError(f"{name}: lu_tile differs from "
                                          f"plain {r:.3e} ({dt}, cs={cs})")
                 worst[dt] = max(worst.get(dt, 0.0), r)
+                got.append(g)
+            outs[f"{dt} cs={cs} dominant"] = got
+            for kind, tiles in chip_smoke._special_tiles(rng, tdt,
+                                                         cs).items():
+                ids = torch.arange(tiles.shape[0], dtype=torch.int32,
+                                   device="cuda")
+                for inverses in (True, False):
+                    outs[f"{dt} cs={cs} {kind} inverses={inverses}"] = run(
+                        tiles, ids, inverses)
+    for label, store, diag, inverses in cases:
+        outs[label] = run(store, diag, inverses)
     torch.cuda.synchronize()
     print(f"{name} vs lu_tile_plain: max rel diff f32 {worst['float32']:.3e}"
           f" f64 {worst['float64']:.3e} (bounds "
           f"{chip_smoke.LU_TOL['float32']:g}/{chip_smoke.LU_TOL['float64']:g}"
           f"; cs in {list(chip_smoke.LU_SIZES)}, with and without inverses)")
+    return outs
+
+
+def _same_bits(name, outs, first, first_outs):
+    """Print whether ``outs`` equal ``first_outs`` bit for bit; returns
+    True if they do."""
+    import torch
+
+    what = ("factor", "pivots", "L^-1", "U^-1")
+    bad = []
+    for label, ts in outs.items():
+        for w, a, b in zip(what, ts, first_outs[label]):
+            ia = a.view(torch.int32 if a.element_size() == 4 else torch.int64)
+            ib = b.view(ia.dtype)
+            n = int((ia != ib).sum())
+            if n:
+                both_nan = bool((a.isnan() & b.isnan())[ia != ib].all())
+                bad.append(f"{label} {w}: {n} elements"
+                           + (" (NaN payloads only)" if both_nan else ""))
+    n_out = sum(len(ts) for ts in outs.values())
+    if bad:
+        print(f"{name}: DIFFERS from {first} bit for bit in "
+              f"{len(bad)} of {n_out} outputs: " + "; ".join(bad[:12]))
+    else:
+        print(f"{name}: factor, pivots, L^-1 and U^-1 bit for bit equal to "
+              f"{first}'s in all {n_out} outputs ({len(outs)} launches: "
+              f"cs in {list(chip_smoke.LU_SIZES)} dominant and "
+              f"{'/'.join(chip_smoke.SPECIAL_TILES)}, the timed shapes; "
+              f"float32 and float64; with and without inverses)")
+    return not bad
 
 
 def _clocks(name, labels, cases):
@@ -211,7 +290,6 @@ def _clocks(name, labels, cases):
 def main() -> int:
     import argparse
 
-    import numpy as np
     import torch
 
     from tpu_sparse_lu_torch.ops import lu_tile as LT
@@ -220,7 +298,9 @@ def main() -> int:
     parser.add_argument("--clocks", action="store_true",
                         help="add each version built with -DLU_TILE_CLOCKS "
                              "and print its phase cycles")
-    parser.add_argument("sources", nargs="*", help="NAME=PATH.cu")
+    parser.add_argument("sources", nargs="*",
+                        help="NAME=PATH: a directory with lu_tile.cu and "
+                             "its headers, or a .cu file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("lu_tile_sweep: CUDA is not available", file=sys.stderr)
@@ -253,13 +333,19 @@ def main() -> int:
                 cases.append((f"{tag} {dt} {diag.shape[0]} tiles "
                               + ("LU + inverses" if inverses
                                  else "LU alone"), store, diag, inverses))
-    rng = np.random.default_rng(14)
     own = LT.lib
     times = {name: {c[0]: [] for c in cases} for name in timed}
+    same = True
     try:
+        first = None
         for name in timed:
             LT.lib = lambda L=libs[name]: L
-            _check(name, rng)
+            outs = _outputs(name, cases)
+            if first is None:
+                first, first_outs = name, outs
+            else:
+                same &= _same_bits(name, outs, first, first_outs)
+            del outs
         for name, labels in clocked:
             LT.lib = lambda L=libs[name]: L
             _clocks(name, labels, cases)
@@ -277,7 +363,7 @@ def main() -> int:
         print(f"{name}: " + "; ".join(
             f"{label} {t[0]:.4f}, {t[1]:.4f}"
             for label, t in times[name].items()))
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

@@ -60,12 +60,13 @@
 // launch error and not as a hang.
 //
 // What bounds it on the card: the chain of diagonal tiles. Each level's LU
-// runs on one SM (~74 us a 128 x 128 tile in float32, as lu_tile; the
-// first of a launch ~115 us), and the next level's LU waits for it, a
+// runs on one SM (~67 us a 128 x 128 tile in float32, as lu_tile, whose
+// diagonal blocks' 124 serial steps of ~215 SM cycles take the most; the
+// first of a launch ~100 us), and the next level's LU waits for it, a
 // panel sub-tile and the Schur sub-tile into its own tile (~22 us of
 // products a level: the thin shapes are bound by the SM's shared-memory
 // wavefronts): 8 LUs in a row at the 2D Poisson 100x100 nd headline, 29
-// in BASELINE config 2, 69% and 76% of the critical path (an H100,
+// in BASELINE config 2, 64% and 73% of the critical path (an H100,
 // tools/elim_sweep.py --clocks, PERF.md). The FLOP and bytes (~45 us at
 // the headline) hide under that chain. The ticket order is a list
 // schedule of the task graph on the card's SMs (ops/elim_fused.py), so a

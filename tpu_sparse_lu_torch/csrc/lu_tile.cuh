@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 namespace lut {
 
@@ -111,28 +113,31 @@ struct Vec16<double> {
 template <typename T>
 constexpr int kNV = 16 / (int)sizeof(T);  // elements of T in 16 bytes
 
-// a / b rounded to nearest: the true division of the rank-1 loop. The
-// division nvcc emits checks its operands' exponent range and leaves the
-// fast path when the check fails, which a zero numerator (most
-// multipliers of a sparse tile) is expected to do; a warp pays the slow
-// path whenever one lane takes it. So 0 / b is taken apart: for b neither
-// 0 nor NaN it is the zero of sign sign(a) ^ sign(b), which
-// a * copysign(1, b) gives exactly; the division itself sits in volatile
-// asm, so the compiler cannot hoist it out of its branch and run it for
-// every lane. (On the headline's tiles this cut the diagonal blocks'
-// cycles by a third; tools/lu_tile_sweep.py --clocks.)
+// 16 bytes of T at p (16-byte aligned)
+template <typename T>
+__device__ __forceinline__ typename Vec16<T>::type load16(const T* p) {
+  return *reinterpret_cast<const typename Vec16<T>::type*>(p);
+}
+
+// a / b rounded to nearest: the true division of the rank-1 loop and of
+// the panel solves, with no branch. The division nvcc emits checks its
+// operands' range and leaves its fast path when the check fails, which a
+// zero numerator (most multipliers of a sparse tile) does; a warp pays the
+// slow path whenever one lane takes it. So every lane divides c ? 1 : a,
+// where c says that a is zero and b neither 0 nor NaN, and a lane with c
+// takes the zero of sign sign(a) ^ sign(b), which a * copysign(1, b) gives
+// exactly: the bits of a / b for every input, and no lane diverges for a
+// zero numerator.
 __device__ __forceinline__ float div_rn(float a, float b) {
-  if (a == 0.f && b == b && b != 0.f) return a * copysignf(1.f, b);
-  float q;
-  asm volatile("div.rn.f32 %0, %1, %2;" : "=f"(q) : "f"(a), "f"(b));
-  return q;
+  const bool c = a == 0.f && b == b && b != 0.f;
+  const float q = __fdiv_rn(c ? 1.f : a, b);
+  return c ? a * copysignf(1.f, b) : q;
 }
 
 __device__ __forceinline__ double div_rn(double a, double b) {
-  if (a == 0.0 && b == b && b != 0.0) return a * copysign(1.0, b);
-  double q;
-  asm volatile("div.rn.f64 %0, %1, %2;" : "=d"(q) : "d"(a), "d"(b));
-  return q;
+  const bool c = a == 0.0 && b == b && b != 0.0;
+  const double q = __ddiv_rn(c ? 1.0 : a, b);
+  return c ? a * copysign(1.0, b) : q;
 }
 
 template <typename T>
@@ -142,42 +147,145 @@ __device__ __forceinline__ T nan_min(T x, T y) {
   return x < y ? x : y;
 }
 
-// The diagonal block A11 = A[k0:k0+w, k0:k0+w] by the rank-1 loop, one
-// warp: lane i holds row k0 + i in registers; step k takes the pivot and
-// row k from lane k by shuffles (the warp's only synchronisation).
+// u[j] = src[j] for lo <= j <= hi, 16 bytes at a time (src 16-byte
+// aligned)
 template <typename T>
-__device__ __forceinline__ void factor_diag(T* A, int k0, int w,
-                                            int lane) {
-  T* row = A + (k0 + lane) * kPitch<T> + k0;
-  const bool mine = lane < w;
-  T r[kPanel];
+__device__ __forceinline__ void load_row(const T* src, int lo, int hi,
+                                         T (&u)[kPanel]) {
+  using V = Vec16<T>;
+  constexpr int NV = kNV<T>;
 #pragma unroll
-  for (int t = 0; t < kPanel; ++t)
-    r[t] = (mine && t < w) ? row[t] : T(0);
+  for (int q = 0; q < kPanel; q += NV) {
+    if (q + NV <= lo || q > hi) continue;
+    const typename V::type v = load16(src + q);
 #pragma unroll
-  for (int k = 0; k < kPanel; ++k) {
-    if (k >= w) break;  // uniform
-    const T p = __shfl_sync(kFull, r[k], k);
-    const bool below = lane > k;
-    T l = T(0);
-    if (below) l = div_rn(r[k], p);
-#pragma unroll
-    for (int j = k + 1; j < kPanel; ++j) {
-      const T u = __shfl_sync(kFull, r[j], k);
-      if (below) r[j] -= l * u;
-    }
-    if (below) r[k] = l;
-  }
-  if (mine) {
-#pragma unroll
-    for (int t = 0; t < kPanel; ++t)
-      if (t < w) row[t] = r[t];
+    for (int e = 0; e < NV; ++e)
+      if (q + e >= lo && q + e <= hi) u[q + e] = V::part(v, e);
   }
 }
 
-// Row i of A21 against U11: for j = k0.., a_ij -= a_ik u_kj (k = k0..j-1),
-// then a_ij /= u_jj. One thread, the row in registers, U11 read from
-// shared memory (the same address for every thread: a broadcast).
+// dst[q .. q + 16 bytes) = r[q ..] (dst 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store_row(T* dst, int q,
+                                          const T (&r)[kPanel]) {
+  using V = Vec16<T>;
+  T e[kNV<T>];
+#pragma unroll
+  for (int f = 0; f < kNV<T>; ++f) e[f] = r[q + f];
+  *reinterpret_cast<typename V::type*>(dst + q) = V::make(e);
+}
+
+// Entries of row k of the diagonal block read into registers before the
+// division that precedes step k: its first 16 bytes, the rest as they are
+// used. (Reading the whole row ahead took ~1.7 us less a float32 tile but
+// spilled in elim_fused, whose ticket loop holds more registers.)
+template <typename T>
+constexpr int kAhead = kNV<T>;
+// Whether a lane moves its own row of the diagonal block between shared
+// memory and registers 16 bytes at a time: in float32; float64 moves it
+// an element at a time (in 16-byte pieces it spilled 148 more bytes and
+// ran 13% slower).
+template <typename T>
+constexpr bool kRowVec = sizeof(T) == 4;
+
+// Step K of factor_diag on lane `lane`'s row r of A11 (D), with u[j] =
+// u_Kj for K < j <= K + kAhead, p = u_KK and l = l_iK on entry; leaves
+// them for step K + 1 and returns true, or returns false after the last
+// step that changes a row < w.
+template <typename T, int K>
+__device__ __forceinline__ bool diag_step(T* D, T (&r)[kPanel],
+                                          T (&u)[kPanel], T& p, T& l, int w,
+                                          int lane) {
+  constexpr int NV = kNV<T>;
+  constexpr int G = kAhead<T>;  // u_{K+1,j}, K + 1 < j <= K + 1 + G, ahead
+  const bool below = lane > K;
+  r[K] = below ? l : r[K];
+  r[K + 1] = below ? r[K + 1] - l * u[K + 1] : r[K + 1];
+  if (K + 2 >= kPanel) return false;
+  p = __shfl_sync(kFull, r[K + 1], K + 1);
+#pragma unroll
+  for (int j = K + 2; j < kPanel; ++j) {
+    if (j > K + G && (j == K + G + 1 || j % NV == 0))
+      load_row(D + K * kPitch<T>, j, j | (NV - 1), u);
+    r[j] = below ? r[j] - l * u[j] : r[j];
+  }
+  if (K + 2 >= w) return false;  // uniform: steps K + 1.. change no row < w
+  T* next = D + (K + 1) * kPitch<T>;
+  if (lane == K + 1) {  // row K + 1, final, over its own row of A11
+#pragma unroll
+    for (int q = (K + 2) / NV * NV; q < kPanel; q += NV)
+      store_row(next, q, r);
+  }
+  __syncwarp();
+  load_row(next, K + 2, K + 1 + G, u);
+  l = div_rn(lane > K + 1 ? r[K + 1] : T(0), p);
+  return true;
+}
+
+template <typename T, int... K>
+__device__ __forceinline__ void diag_steps(T* D, T (&r)[kPanel],
+                                           T (&u)[kPanel], T& p, T& l,
+                                           int w, int lane,
+                                           std::integer_sequence<int, K...>) {
+  bool go = true;
+  ((go = go && diag_step<T, K>(D, r, u, p, l, w, lane)), ...);
+}
+
+// The diagonal block A11 = A[k0:k0+w, k0:k0+w] by the rank-1 loop, one
+// warp: lane i holds row k0 + i in registers. Step k divides column k
+// below the pivot u_kk by it (lane i forms l_ik) and subtracts l_ik u_kj
+// from every later column. The serial chain of a step is the update of
+// column k + 1, which holds the next pivot, that pivot's shuffle and the
+// next division; the rest is laid beside it. So step k updates column
+// k + 1 first, shuffles the next pivot out of lane k + 1, updates the
+// other columns, and lane k + 1, whose row is then final, stores it over
+// its own row of A11 (16 bytes at a time), from where every lane reads it
+// for step k + 1 (one broadcast per 16 bytes; with a shuffle per column
+// the diagonal blocks took 25% more cycles); then the next division,
+// whose numerators and pivot are ready. No lane branches: lanes at or
+// above the pivot divide a zero and keep their row by selects. Each
+// element still gets a_ij -= l_ik u_kj for k ascending, then one true
+// division: the same bits whatever order the instructions go in. The
+// steps are one template instance each, so every index into the rows is a
+// constant.
+template <typename T>
+__device__ __forceinline__ void factor_diag(T* A, int k0, int w,
+                                            int lane) {
+  T* const D = A + k0 * kPitch<T> + k0;  // A11
+  T* row = D + lane * kPitch<T>;
+  const bool mine = lane < w;
+  T r[kPanel];
+  if (kRowVec<T> && mine) load_row(row, 0, kPanel - 1, r);
+#pragma unroll
+  for (int t = 0; t < kPanel; ++t)
+    r[t] = (mine && t < w) ? (kRowVec<T> ? r[t] : row[t]) : T(0);
+  T u[kPanel];  // row k in step k
+  load_row(D, 1, kAhead<T>, u);
+  T p = __shfl_sync(kFull, r[0], 0);
+  T l = div_rn(lane > 0 ? r[0] : T(0), p);  // l_i0 on lane i
+  diag_steps(D, r, u, p, l, w, lane,
+             std::make_integer_sequence<int, kPanel - 1>());
+  if (mine) {  // a ragged panel's last 16 bytes may run past cs, into the
+               // pitch's spare columns
+#pragma unroll
+    for (int t = 0; t < kPanel; t += kRowVec<T> ? kNV<T> : 1) {
+      if (t >= w) continue;
+      if (kRowVec<T>)
+        store_row(row, t, r);
+      else
+        row[t] = r[t];
+    }
+  }
+}
+
+// Row i of A21 against U11: a_ij -= a_ik u_kj for k ascending, then
+// a_ij /= u_jj, by columns k = 0..: a_ik is divided, then subtracted from
+// column k + 1 first, whose division comes next, then from the columns
+// after it, beside that division. One thread, the row in registers, U11
+// read from shared memory (the same address for every thread: a
+// broadcast); the divisions are div_rn's, so no thread diverges from its
+// warp on a zero. (w < kPanel only in a tile's last panel, which has no
+// rows below it.)
 template <typename T>
 __device__ __forceinline__ void solve_row(T* A, int k0, int w, int i) {
   T* row = A + i * kPitch<T> + k0;
@@ -186,11 +294,11 @@ __device__ __forceinline__ void solve_row(T* A, int k0, int w, int i) {
 #pragma unroll
   for (int t = 0; t < kPanel; ++t) r[t] = t < w ? row[t] : T(0);
 #pragma unroll
-  for (int j = 0; j < kPanel; ++j) {
-    if (j >= w) break;  // uniform
+  for (int k = 0; k < kPanel; ++k) {
+    if (k >= w) break;  // uniform
+    r[k] = div_rn(r[k], U[k * kPitch<T> + k]);
 #pragma unroll
-    for (int k = 0; k < j; ++k) r[j] -= r[k] * U[k * kPitch<T> + j];
-    r[j] = div_rn(r[j], U[j * kPitch<T> + j]);
+    for (int j = k + 1; j < kPanel; ++j) r[j] -= r[k] * U[k * kPitch<T> + j];
   }
 #pragma unroll
   for (int t = 0; t < kPanel; ++t)
@@ -275,12 +383,6 @@ __device__ __forceinline__ void update_trailing(T* A, int cs, int k0,
       const int j = k1 + lane + 32 * b;
       if (i < cs && j < cs) A[i * P + j] = acc[a][b];
     }
-}
-
-// 16 bytes of T at p (16-byte aligned)
-template <typename T>
-__device__ __forceinline__ typename Vec16<T>::type load16(const T* p) {
-  return *reinterpret_cast<const typename Vec16<T>::type*>(p);
 }
 
 // Step 1 of the inverses: the diagonal block b (width w) of the unit lower
