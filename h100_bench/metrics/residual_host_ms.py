@@ -1,0 +1,10 @@
+"""residual_host_ms.* (ms): the median over the traced steps of the host
+time in the program's ``lu.ldiv.residual`` spans (each refinement sweep's
+residual and its update), from the profiler's trace. Serves every
+``residual_host_ms.<kind>``."""
+
+from h100_bench import spans
+
+
+def read(run):
+    return spans.step_median_ms(run.trace, "lu.ldiv.residual")

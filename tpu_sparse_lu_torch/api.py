@@ -1053,15 +1053,20 @@ class ParallelSparseLU:
         numeric = self._numeric
 
         def solve32(r):
-            return numeric.solve(r.float()).double()
+            with span("lu.ldiv.cast"):
+                r = r.float()
+            d = numeric.solve(r)
+            with span("lu.ldiv.cast"):
+                return d.double()
 
         def solve(b):
-            if self._numeric is not numeric:
-                raise RuntimeError(
-                    "stale make_f64_ldiv solve: a refactorization replaced "
-                    "the numeric state this callable was built on; call "
-                    "make_f64_ldiv() again")
-            b, squeeze = self._as_rhs(b, dtype=torch.float64)
+            with span("lu.ldiv.rhs"):
+                if self._numeric is not numeric:
+                    raise RuntimeError(
+                        "stale make_f64_ldiv solve: a refactorization "
+                        "replaced the numeric state this callable was built "
+                        "on; call make_f64_ldiv() again")
+                b, squeeze = self._as_rhs(b, dtype=torch.float64)
             x = refine(solve32, lambda b, x: b - A64 @ x, b, solve32(b),
                        steps)
             return x[:, 0] if squeeze else x

@@ -14,7 +14,9 @@ Names are ``lu.<layer>.<phase>``:
   panel), ``lu.ldiv.launch`` (one direct solve on the tiles: checks,
   buffers, the kernel launch) or, where ``ldiv`` runs the chain solve,
   ``lu.ldiv.chain`` (the same for the chain kernel), ``lu.ldiv.residual``
-  (a refinement sweep's residual, and its update, each a call);
+  (a refinement sweep's residual, and its update, each a call),
+  ``lu.ldiv.cast`` (in ``make_f64_ldiv``, a direct solve's right-hand
+  side to float32, and its answer to float64, each a call);
 * the refactor-solve step: ``lu.step.inputs``, ``lu.refactor.assemble``,
   ``lu.refactor.eliminate``, ``lu.refactor.extract`` (the solve banks'
   tiles and the pivot growth), ``lu.refactor.banks`` (the banks and the
