@@ -46,7 +46,9 @@ Phases, one line of output each; any failure raises and exits non-zero:
    (bounds: ``LU_TOL`` and ``ELIM_TOL``, max relative difference over the
    real tiles), and by the one-launch elimination ``elim_fused`` at grid
    sizes 1, 7 and the default, each bit for bit equal to the per-level
-   route and within ``ELIM_TOL`` of its plain twin; then
+   route and within ``ELIM_TOL`` of its plain twin, and the one launch's
+   output through ``extract_banks`` bit for bit equal to
+   ``extract_banks_plain`` (a NaN growth matching a NaN); then
    ``refactor_numeric``'s pipeline captured in a CUDA graph on each
    deployment (float32), 10 replays on fresh seeded values, each bit for
    bit equal to its eager run;
@@ -77,7 +79,9 @@ Phases, one line of output each; any failure raises and exits non-zero:
    (levels times ``lu_tile`` on one tile), the assembly alone (two launches against
    the yardstick route, eager and by replay) and the extraction (the
    pipeline less the elimination and the assembly) on both deployments,
-   each assembly kernel alone, ``span_gather``/``lu_tile`` against
+   each assembly kernel alone, ``extract_banks`` alone on the headline's
+   eliminated store against its plain twin (eager and by replay) beside
+   its byte bound, ``span_gather``/``lu_tile`` against
    ``index_select``/``lu_factor_ex(pivot=False)`` (TF32 off), and
    ``lu_tile`` with and without the inverses on the headline's 23
    level-0 tiles and on config 2's one-tile level 0, float32 and
@@ -224,6 +228,8 @@ KERNELS = {
                    "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
     "ldiv_fused_bf16": ("tpu_sparse_lu_torch/csrc/ldiv_fused.cu",
                         "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
+    "extract_banks": ("tpu_sparse_lu_torch/csrc/extract.cu",
+                      "none: the JAX package extracts with jnp ops"),
 }
 # R of the one-launch solve's checks, and its grid sizes (None: as many
 # blocks as the card holds at once); the one-launch elimination is held to
@@ -366,6 +372,8 @@ LIBRARY = {
     "elim_fused": "the per-level route with library products: per level "
                   "one lu_tile launch, the products by torch.bmm and "
                   "index_add_ (tile_mm_plain), in one CUDA graph",
+    "extract_banks": "none: gathers, tril/triu, cat, negation, transposed "
+                     "copies and amax (extract_banks_plain, the plain_ms)",
 }
 
 
@@ -959,6 +967,43 @@ def _elim_fused_equal(store, sched, want, tag):
     return got
 
 
+def _extract_args(dev, eliminated):
+    """``extract_banks``'s arguments from ``eliminate``'s output."""
+    store, _, linv, uinv = eliminated
+    return (store, linv, uinv, dev.diag_src, dev.l_off_src, dev.u_off_src,
+            dev.diag_lvlslot)
+
+
+def _extract_equal(dev, eliminated, tag) -> float:
+    """``extract_banks`` bit for bit equal to ``extract_banks_plain`` on
+    the same eliminated store, inverses and maps (a NaN growth matches a
+    NaN growth); returns the max abs difference of the finite outputs."""
+    import torch
+
+    from tpu_sparse_lu_torch.ops.extract import (
+        extract_banks, extract_banks_plain,
+    )
+
+    args = _extract_args(dev, eliminated)
+    got, want = extract_banks(*args), extract_banks_plain(*args)
+    torch.cuda.synchronize()
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    worst = 0.0
+    for what, g, w in zip(("lbank", "ubank", "ldiag", "udiag", "growth"),
+                          got, want):
+        if what == "growth" and bool(w.isnan()) and bool(g.isnan()):
+            continue
+        if g.shape != w.shape or not torch.equal(g.view(ints[g.dtype]),
+                                                 w.view(ints[w.dtype])):
+            raise AssertionError(f"{tag}: extract_banks differs from its "
+                                 f"plain twin in {what}")
+        fin = w.isfinite()
+        if bool(fin.any()):
+            worst = max(worst, float((g[fin].double() - w[fin].double())
+                                     .abs().max()))
+    return worst
+
+
 def _refactor_replays(F, A, rng) -> str:
     """``refactor_numeric``'s device pipeline captured once in a CUDA
     graph on a static value tensor, then ``REFACTOR_REPLAYS`` replays,
@@ -1079,7 +1124,8 @@ def phase_refactor_kernels_vs_plain():
 
     # the real stores of both deployments, float32 and float64
     err = {"span_gather": 0.0, "lu_tile": 0.0, "tile_mm": 0.0,
-           "elim_fused": 0.0, "assemble_tiles": 0.0, "assemble_closure": 0.0}
+           "elim_fused": 0.0, "assemble_tiles": 0.0, "assemble_closure": 0.0,
+           "extract_banks": 0.0}
     real, replays = {}, {}
     for name in ("headline", "config2"):
         for dt in ("float32", "float64"):
@@ -1115,6 +1161,9 @@ def phase_refactor_kernels_vs_plain():
             ek = eliminate(sp_.clone(), sched, route="levels")
             ep = eliminate(sp_.clone(), sched, route="levels", plain=True)
             ef = _elim_fused_equal(sp_, sched, ek, f"{name} {dt}")
+            # the extraction of the one launch's output, bit for bit
+            err["extract_banks"] = max(err["extract_banks"], _extract_equal(
+                F._refactor_dev, ef, f"{name} {dt}"))
             efp = eliminate(sp_.clone(), sched, plain=True)
             for kind, got, ref in (("tile_mm", ek, ep),
                                    ("elim_fused", ef, efp)):
@@ -1163,6 +1212,9 @@ def phase_refactor_kernels_vs_plain():
           f"captured in a CUDA graph, {REFACTOR_REPLAYS} replays on fresh "
           f"values each bit for bit equal to its eager run: " + ", ".join(
               f"{k} {v}" for k, v in replays.items()))
+    print(f"phase 6 extract_banks: bit for bit equal to extract_banks_plain "
+          f"on elim_fused's output of both real stores, float32 and "
+          f"float64 (max abs diff {err['extract_banks']:.3e})")
     return err
 
 
@@ -1173,6 +1225,7 @@ def _reset_launches(*names):
     from tpu_sparse_lu_torch.ops.bidiag_ldiv import bidiag_ldiv
     from tpu_sparse_lu_torch.ops.elim_fused import elim_fused
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
+    from tpu_sparse_lu_torch.ops.extract import extract_banks
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
         fused_ldiv, fused_ldiv_bf16, perm_gather, wave_apply, wave_apply_bf16,
     )
@@ -1185,7 +1238,8 @@ def _reset_launches(*names):
            "bidiag_ldiv": bidiag_ldiv, "ldiv_fused": fused_ldiv,
            "ldiv_fused_bf16": fused_ldiv_bf16, "elim_fused": elim_fused,
            "assemble_tiles": assembly.assemble_tiles,
-           "assemble_closure": assembly.assemble_closure}
+           "assemble_closure": assembly.assemble_closure,
+           "extract_banks": extract_banks}
     for f in fns.values():
         f.LAUNCHES = 0
     return lambda: {k: fns[k].LAUNCHES for k in names}
@@ -1197,9 +1251,9 @@ def phase_device_lifecycle():
 
     rng = np.random.default_rng(5)
     R = HEADLINE["R"]
-    read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused", "lu_tile",
-                           "tile_mm", "span_gather", "perm_gather",
-                           "wave_apply")
+    read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused",
+                           "extract_banks", "lu_tile", "tile_mm",
+                           "span_gather", "perm_gather", "wave_apply")
     t0 = time.perf_counter()
     A, F = _device_headline("float32")
     torch.cuda.synchronize()
@@ -1244,17 +1298,20 @@ def phase_device_lifecycle():
     torch.cuda.synchronize()
     launches = read()
     # four checked ldiv calls (two refined) and the refined step: 8 solves;
-    # every refactorization (one assembly each) one elim_fused launch
+    # every refactorization (one assembly each) one elim_fused launch and
+    # one extract_banks launch
     waves = {k: launches.pop(k)
              for k in ("span_gather", "perm_gather", "wave_apply",
                        "lu_tile", "tile_mm")}
     if (min(launches.values()) == 0 or launches["ldiv_fused"] != 8
             or launches["elim_fused"] != launches["assemble_tiles"]
+            or launches["extract_banks"] != launches["assemble_tiles"]
             or any(waves.values())):
         raise AssertionError(f"device lifecycle did not launch every "
                              f"kernel, or not one ldiv_fused per solve, or "
-                             f"not one elim_fused per refactorization, or "
-                             f"a yardstick: {launches}, {waves}")
+                             f"not one elim_fused and one extract_banks per "
+                             f"refactorization, or a yardstick: {launches}, "
+                             f"{waves}")
     # the yardstick assembly on the last values, bit for bit (it launches
     # span_gather once; no entry point does since the assembly kernels)
     a_last = F._a64.to(F.dtype)
@@ -1309,8 +1366,8 @@ def phase_config2_step():
 
     rng = np.random.default_rng(6)
     read = _reset_launches("ldiv_fused", *ASSEMBLY, "elim_fused",
-                           "span_gather", "lu_tile", "tile_mm", "perm_gather",
-                           "wave_apply")
+                           "extract_banks", "span_gather", "lu_tile",
+                           "tile_mm", "perm_gather", "wave_apply")
     A, F = _config2_solver()
     step = F.make_refactor_solve_step()
     A_chk = A.copy()
@@ -1333,9 +1390,10 @@ def phase_config2_step():
     torch.cuda.synchronize()
     launches = read()
     if ((launches["ldiv_fused"], launches["elim_fused"],
-         launches["span_gather"], launches["lu_tile"], launches["tile_mm"],
-         launches["perm_gather"], launches["wave_apply"])
-            != (1, 1, 0, 0, 0, 0, 0)
+         launches["extract_banks"], launches["span_gather"],
+         launches["lu_tile"], launches["tile_mm"], launches["perm_gather"],
+         launches["wave_apply"])
+            != (1, 1, 1, 0, 0, 0, 0, 0)
             or any(launches[k] != 1 for k in ASSEMBLY)):
         raise AssertionError(f"config-2 step launched {launches}")
     rp = F._refactor_plan
@@ -1351,6 +1409,9 @@ def phase_refactor_timing(A2c, F2c, step, smi):
 
     from tpu_sparse_lu_torch.ops.elimination import (
         eliminate, tile_mm, tile_mm_plain,
+    )
+    from tpu_sparse_lu_torch.ops.extract import (
+        extract_banks, extract_banks_plain,
     )
     from tpu_sparse_lu_torch.ops.lu_tile import lu_tile, lu_tile_plain
     from tpu_sparse_lu_torch.ops.span_gather import (
@@ -1393,7 +1454,8 @@ def phase_refactor_timing(A2c, F2c, step, smi):
         ms[name] = _median_ms(
             lambda t: fn(t, lvl0.diag, linv=li, uinv=ui), setup=store.clone,
             reps=30)
-    _, _, linv, uinv = eliminate(store.clone(), dev.elim)
+    eliminated = eliminate(store.clone(), dev.elim)
+    _, _, linv, uinv = eliminated
     linv, uinv = (x.reshape(-1, cs, cs) for x in (linv, uinv))
     for name, fn in (("tile_mm", tile_mm), ("tile_mm_plain", tile_mm_plain)):
         # every tile product of one elimination
@@ -1407,6 +1469,23 @@ def phase_refactor_timing(A2c, F2c, step, smi):
                               setup=store.clone, reps=reps, warmup=2)
     ms["elim_fused"] = ms["elimination"]
     ms["elim_fused_plain"] = ms["elimination_plain"]
+    # the extraction alone on the headline's eliminated store
+    xargs = _extract_args(dev, eliminated)
+    ms["extract_banks_device"] = _graph_ms(lambda: extract_banks(*xargs))
+    ms["extract_banks"] = _median_ms(lambda _: extract_banks(*xargs))
+    ms["extract_banks_plain"] = _median_ms(
+        lambda _: extract_banks_plain(*xargs), reps=20)
+    ms["extract_banks_plain_device"] = _graph_ms(
+        lambda: extract_banks_plain(*xargs))
+    # every tile read once (K diagonal, the off-diagonal, 2K inverse) and
+    # written once (2(K+1) diagonal, 2K inverse, the off-diagonal and four
+    # identity / zero slots of the banks)
+    K = dev.diag_src.numel()
+    T = dev.l_off_src.numel() + dev.u_off_src.numel()
+    x_tiles = (3 * K + T, 4 * K + 2 + T + 4)
+    WORK["extract_banks"] = (
+        sum(x_tiles) * cs * cs * store.element_size() + _nbytes(*xargs[3:]),
+        0)
     ms["config2_step_graph"] = _graph_ms(lambda: step(a2c, b2c), reps=20)
     print(f"phase 9 refactor timing on {smi}: median config-2 fused step "
           f"R={CONFIG2['R']} {ms['config2_step']:.4f} ms; refactor_numeric "
@@ -1422,6 +1501,13 @@ def phase_refactor_timing(A2c, F2c, step, smi):
           f"{ms['elimination_plain']:.4f} ms plain twin, per-level route "
           f"{ms['elimination_levels']:.4f} ms; config-2 fused step by "
           f"CUDA-graph replay {ms['config2_step_graph']:.4f} ms")
+    print(f"phase 9 extract_banks on {smi} (headline, K={K}, {T} "
+          f"off-diagonal tiles: {x_tiles[0]} tiles read, {x_tiles[1]} "
+          f"written): one launch {ms['extract_banks_device']:.4f} ms by "
+          f"CUDA-graph replay, {ms['extract_banks']:.4f} ms eager; plain "
+          f"twin {ms['extract_banks_plain_device']:.4f} ms replay, "
+          f"{ms['extract_banks_plain']:.4f} ms eager; bound "
+          f"{_bound('extract_banks')[0] * 1e3:.2f} us (bytes)")
     rows = sg[0].shape[0]
     WORK["span_gather"] = (_nbytes(a_pad, *sg) + rows * cs * a.element_size(),
                            0)
@@ -3009,7 +3095,8 @@ def main() -> int:
              "bidiag_ldiv": "bidiag_ldiv_device",
              **{k: k + "_device" for k in ASSEMBLY},
              "ldiv_fused": "ldiv_fused_device",
-             "ldiv_fused_bf16": "ldiv_fused_bf16_device"}
+             "ldiv_fused_bf16": "ldiv_fused_bf16_device",
+             "extract_banks": "extract_banks_device"}
     library = {"span_gather": "span_gather_library",
                "lu_tile": "lu_tile_library",
                "tile_mm": "tile_mm_headline_library",

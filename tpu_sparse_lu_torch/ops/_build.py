@@ -166,6 +166,16 @@ def bind_assembly(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_extract(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/extract.cu``'s entries."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for dt in ("f32", "f64"):
+        f = getattr(lib, f"extract_banks_{dt}")
+        f.argtypes = [P] * 12 + [I, I, I, L, L, I, P]
+        f.restype = I
+    return lib
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for dt in ("f32", "f64"):
@@ -190,6 +200,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     bind_elim_fused(lib)
     bind_bidiag(lib)
     bind_assembly(lib)
+    bind_extract(lib)
     lib.ldiv_error_string.argtypes = [I]
     lib.ldiv_error_string.restype = ctypes.c_char_p
     lib.ldiv_max_chunk.argtypes = []

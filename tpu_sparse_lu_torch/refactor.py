@@ -16,8 +16,9 @@ whole numeric phase runs on the solver's device:
 * Device, every refactorization (:func:`refactor_pipeline`): assemble the
   store with the assembly kernels (B4), eliminate in one launch (B3,
   ``ops/elim_fused.py``: the tile LU of B2 and the tile products as its
-  tasks), then extract the solve banks — reusing the diagonal inverses
-  the elimination computed — with no host synchronisation.
+  tasks), then extract the solve banks, the diagonal tiles and the pivot
+  growth in one launch (``ops/extract.py``), reusing the diagonal
+  inverses the elimination computed — with no host synchronisation.
 
 No numerical pivoting happens here (the point of the static-pivot
 design). The functions here take plans and tensors only: the solver hands
@@ -42,6 +43,7 @@ from .assemble import (
     plan_assembly,
 )
 from .ops.elimination import ElimSchedule, build_elim_schedule, eliminate
+from .ops.extract import extract_banks, extract_banks_plain
 from .symbolic import (
     TriPlan,
     dataclass_arrays,
@@ -395,18 +397,6 @@ def upload_refactor_plan(rp: RefactorPlan, device) -> RefactorDevice:
     )
 
 
-def _bank(dinv_real: torch.Tensor, off_real: torch.Tensor) -> torch.Tensor:
-    """The solve's transposed tile bank ``[diag_inv (K+1); −offdiag (T+1)]``
-    from the real tiles, with the dummy slots scrubbed to identity / zero
-    (the elimination never writes the dummy tile, but the solve bank's
-    layout has one slot of each kind)."""
-    cs = dinv_real.shape[-1]
-    eye = torch.eye(cs, dtype=dinv_real.dtype, device=dinv_real.device)[None]
-    zero = torch.zeros_like(eye)
-    return torch.cat([dinv_real, eye, -off_real, zero]).transpose(1, 2) \
-        .contiguous()
-
-
 def refactor_pipeline(a_data: torch.Tensor, dev: RefactorDevice, *,
                       plain: bool = False) -> dict:
     """The whole numeric refactorization: assemble → blocked elimination →
@@ -426,22 +416,12 @@ def refactor_pipeline(a_data: torch.Tensor, dev: RefactorDevice, *,
     with span("lu.refactor.eliminate"):
         store, min_piv, linv, uinv = eliminate(store, dev.elim, plain=plain)
     with span("lu.refactor.extract"):
-        eye = torch.eye(cs, dtype=store.dtype, device=store.device)
-        diag = store[dev.diag_src]
-        ldiag = torch.cat([torch.tril(diag, -1) + eye, eye[None]])
-        udiag = torch.cat([torch.triu(diag), eye[None]])
-        loff = store[dev.l_off_src]
-        uoff = store[dev.u_off_src]
-        # pivot growth: rows of (Rs·A)[p,q] have max |entry| == 1 after the
-        # equilibration, so max |factor entry| is the growth factor
-        parts = [udiag.abs().amax()]
-        parts += [t.abs().amax() for t in (loff, uoff) if t.numel()]
-        growth = torch.stack(parts).amax()
-        ls = dev.diag_lvlslot
-        lbank = _bank(linv.reshape(-1, cs, cs)[ls], loff)
-        ubank = _bank(uinv.reshape(-1, cs, cs)[ls], uoff)
+        extract = extract_banks_plain if plain else extract_banks
+        lbank, ubank, ldiag, udiag, growth = extract(
+            store, linv, uinv, dev.diag_src, dev.l_off_src, dev.u_off_src,
+            dev.diag_lvlslot)
         # free the intermediates inside the span: freed as the function
         # returns, they would fall between this span and the caller's next
-        del store, eye, diag, loff, uoff, linv, uinv, parts
+        del store, linv, uinv
     return {"lbank": lbank, "ubank": ubank, "ldiag": ldiag, "udiag": udiag,
             "rs": rs, "min_pivot": min_piv, "growth": growth}
