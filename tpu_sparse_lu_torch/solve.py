@@ -31,6 +31,8 @@ compile-time concern of XLA and is not carried over.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
+from functools import partial
 from typing import Callable, List, Optional
 
 import torch
@@ -142,31 +144,45 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
     at ``"inv"`` only), else the bank. ``plain=True`` runs the plain
     PyTorch waves on any device; it exists to hold the kernel path
     against them on the card.
+
+    Outside ``"inv"`` the steps are spans of their own, one after another:
+    each off-diagonal wave a ``lu.ldiv.launch``, each diagonal step (the
+    gather, ``solve_triangular`` and the scatter, or the correction) a
+    ``lu.ldiv.diag``, counted in ``blocked_tri_solve.DIAG_STEPS``. At
+    ``"inv"`` every wave runs in the caller's span.
     """
+    if mode not in ("inv", "trsm", "inv_refine"):
+        raise ValueError(f"unknown tri_mode: {mode!r}")
     tiles, apply = data.tiles_t, wave_apply
     if stream and data.tiles_bf16 is not None:
         tiles, apply = data.tiles_bf16, wave_apply_bf16
     if plain:
         apply = wave_apply_plain
     for w in data.waves:
-        if w.accumulate or mode == "inv":
+        if mode == "inv":
             apply(xw, tiles, w)
-        elif mode == "trsm":
+        elif w.accumulate:
+            with span("lu.ldiv.launch"):
+                apply(xw, tiles, w)
+        else:
+            blocked_tri_solve.DIAG_STEPS += 1
             # the diagonal wave's destinations are the level's chunks
             ids = w.dst_long
-            xw[ids] = torch.linalg.solve_triangular(
-                data.diag[ids], xw[ids], upper=not data.lower)
-        elif mode == "inv_refine":
-            ids = w.dst_long
-            r = xw[ids]
-            apply(xw, tiles, w)                       # y = Dinv·r
-            y = xw[ids]
-            xw[ids] = r - torch.bmm(data.diag[ids], y)
-            apply(xw, tiles, w)                       # Dinv·(r − D·y)
-            xw.index_add_(0, ids, y)                  # y + Dinv·(r − D·y)
-        else:
-            raise ValueError(f"unknown tri_mode: {mode!r}")
+            with span("lu.ldiv.diag"):
+                if mode == "trsm":
+                    xw[ids] = torch.linalg.solve_triangular(
+                        data.diag[ids], xw[ids], upper=not data.lower)
+                else:
+                    r = xw[ids]
+                    apply(xw, tiles, w)                   # y = Dinv·r
+                    y = xw[ids]
+                    xw[ids] = r - torch.bmm(data.diag[ids], y)
+                    apply(xw, tiles, w)                   # Dinv·(r − D·y)
+                    xw.index_add_(0, ids, y)              # y + Dinv·(r − D·y)
     return xw
+
+
+blocked_tri_solve.DIAG_STEPS = 0
 
 
 def block_rhs(v: torch.Tensor, n: int, K: int, cs: int) -> torch.Tensor:
@@ -216,30 +232,44 @@ class DeviceFactors:
         the tile solve: perm-in with ``rs``, the L levels, the U levels,
         perm-out — at ``"inv"`` one launch of ``fused_ldiv`` on the tile
         stream (the bfloat16 banks where there are some), in the other
-        modes ``perm_gather``, the level steps of :func:`blocked_tri_solve`
-        and ``perm_gather``.
+        modes :meth:`_levels`.
 
         ``plain=True`` runs the plain PyTorch version of the perms and of
         every wave instead; it exists to hold the kernel path against it
         on the card.
         """
+        if self.mode != "inv":
+            return self._levels(b, plain=plain)
         with span("lu.ldiv.launch"):
             ldata, udata = self.ldata, self.udata
-            if plain or self.mode != "inv":
-                gather = perm_gather_plain if plain else perm_gather
-                R = b.shape[1]
-                xw = gather(b, self.pidx, self.rs).view(
-                    ldata.K + 1, ldata.tiles_t.shape[1], R)
-                blocked_tri_solve(ldata, xw, mode=self.mode, plain=plain,
-                                  stream=True)
-                blocked_tri_solve(udata, xw, mode=self.mode, plain=plain,
-                                  stream=True)
-                return gather(xw.view(-1, R), self.qidx)
+            if plain:
+                return self._levels(b, plain=True)
             if ldata.tiles_bf16 is not None:
                 return fused_ldiv_bf16(b, self.sched, ldata.tiles_bf16,
                                        udata.tiles_bf16, self.rs)
             return fused_ldiv(b, self.sched, ldata.tiles_t, udata.tiles_t,
                               self.rs)
+
+    def _levels(self, b: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+        """The tile solve as level steps: ``perm_gather``, the level steps
+        of :func:`blocked_tri_solve` for L and for U, ``perm_gather``.
+        Outside ``"inv"`` each perm is a ``lu.ldiv.launch`` span and
+        :func:`blocked_tri_solve` spans its own steps; at ``"inv"`` (the
+        plain twin of the one launch) the caller's span holds them all."""
+        ldata, udata = self.ldata, self.udata
+        gather = perm_gather_plain if plain else perm_gather
+        perm = (nullcontext if self.mode == "inv"
+                else partial(span, "lu.ldiv.launch"))
+        R = b.shape[1]
+        with perm():
+            xw = gather(b, self.pidx, self.rs).view(
+                ldata.K + 1, ldata.tiles_t.shape[1], R)
+        blocked_tri_solve(ldata, xw, mode=self.mode, plain=plain,
+                          stream=True)
+        blocked_tri_solve(udata, xw, mode=self.mode, plain=plain,
+                          stream=True)
+        with perm():
+            return gather(xw.view(-1, R), self.qidx)
 
     def solve(self, b: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         """One direct solve of ``ldiv``: on a chain (``chain``) ``Rs``

@@ -12,8 +12,12 @@ Names are ``lu.<layer>.<phase>``:
 
 * a solve: ``lu.ldiv.rhs`` (checks, the right-hand side to a contiguous
   panel), ``lu.ldiv.launch`` (one direct solve on the tiles: checks,
-  buffers, the kernel launch) or, where ``ldiv`` runs the chain solve,
-  ``lu.ldiv.chain`` (the same for the chain kernel), ``lu.ldiv.residual``
+  buffers, the kernel launch; at ``tri_mode`` ``"trsm"`` and
+  ``"inv_refine"``, the level-step solve, each perm and each off-diagonal
+  wave a call, with each level's diagonal step between them a call of
+  ``lu.ldiv.diag``, counted in ``solve.blocked_tri_solve.DIAG_STEPS``) or,
+  where ``ldiv`` runs the chain solve, ``lu.ldiv.chain`` (the same for the
+  chain kernel), ``lu.ldiv.residual``
   (a refinement sweep's residual, and its update, each a call),
   ``lu.ldiv.cast`` (in ``make_f64_ldiv``, a direct solve's right-hand
   side to float32, and its answer to float64, each a call);
