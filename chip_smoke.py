@@ -132,12 +132,15 @@ Phases, one line of output each; any failure raises and exits non-zero:
     ``spsolve_triangular``; float32 ``ldiv`` at R = 16 with
     backward error < 1e-3, two ``perm_gather`` launches and the waves
     (``wave_apply``: the off-diagonal waves, and under ``inv_refine`` the
-    diagonal ones twice) and no ``ldiv_fused`` per solve, the kernel path
-    within ``TOL`` of ``plain=True``; then each mode's ``ldiv`` at R = 16
+    diagonal ones twice), one ``diag_trsm`` launch a diagonal step under
+    ``trsm``, and no ``ldiv_fused`` per solve, the kernel path within
+    ``TOL`` of ``plain=True``; then each mode's ``ldiv`` at R = 16
     beside ``"inv"``, float32 and float64, eager and by CUDA-graph replay
-    in two turns, the ``solve_triangular`` calls of one ``trsm`` solve
-    alone (its share), and ``tri_inverse`` of both factors' diagonal tiles
-    (the set-up the one bank layout costs ``trsm``); on the seeded
+    in two turns, the diagonal steps of one ``trsm`` solve level by level
+    and all together (``diag_trsm``, the route it replaced, the
+    ``solve_triangular`` calls alone), and ``tri_inverse`` of both
+    factors' diagonal tiles (the set-up the one bank layout costs
+    ``trsm``); on the seeded
     perturbed values, one refinement step (the fused step with
     ``refine_steps=1``, and ``ldiv(refine_steps=1)`` after
     ``refactor_numeric``) held to 1e-12 in all three modes;
@@ -230,6 +233,9 @@ KERNELS = {
                         "tpu_sparse_lu/ops/pallas_ldiv.py:571"),
     "extract_banks": ("tpu_sparse_lu_torch/csrc/extract.cu",
                       "none: the JAX package extracts with jnp ops"),
+    "diag_trsm": ("tpu_sparse_lu_torch/csrc/ldiv.cu",
+                  "none: lax.linalg.triangular_solve "
+                  "(tpu_sparse_lu/solve.py:136-141)"),
 }
 # R of the one-launch solve's checks, and its grid sizes (None: as many
 # blocks as the card holds at once); the one-launch elimination is held to
@@ -374,6 +380,9 @@ LIBRARY = {
                   "index_add_ (tile_mm_plain), in one CUDA graph",
     "extract_banks": "none: gathers, tril/triu, cat, negation, transposed "
                      "copies and amax (extract_banks_plain, the plain_ms)",
+    "diag_trsm": "torch.linalg.solve_triangular per level on operands "
+                 "gathered once (the route it replaced adds a gather and a "
+                 "scatter: diag_trsm_plain, the plain_ms)",
 }
 
 
@@ -1227,7 +1236,8 @@ def _reset_launches(*names):
     from tpu_sparse_lu_torch.ops.elimination import tile_mm
     from tpu_sparse_lu_torch.ops.extract import extract_banks
     from tpu_sparse_lu_torch.ops.fused_ldiv import (
-        fused_ldiv, fused_ldiv_bf16, perm_gather, wave_apply, wave_apply_bf16,
+        diag_trsm, fused_ldiv, fused_ldiv_bf16, perm_gather, wave_apply,
+        wave_apply_bf16,
     )
     from tpu_sparse_lu_torch.ops.lu_tile import lu_tile
     from tpu_sparse_lu_torch.ops.span_gather import span_gather
@@ -1239,7 +1249,7 @@ def _reset_launches(*names):
            "ldiv_fused_bf16": fused_ldiv_bf16, "elim_fused": elim_fused,
            "assemble_tiles": assembly.assemble_tiles,
            "assemble_closure": assembly.assemble_closure,
-           "extract_banks": extract_banks}
+           "extract_banks": extract_banks, "diag_trsm": diag_trsm}
     for f in fns.values():
         f.LAUNCHES = 0
     return lambda: {k: fns[k].LAUNCHES for k in names}
@@ -2364,30 +2374,56 @@ def _exact_solve(A, b):
     return x, x0
 
 
-def _trsm_steps(F):
-    """The ``"trsm"`` diagonal steps of one solve alone, on operands
-    gathered beforehand: one ``solve_triangular`` per level of L and of
-    U. Returns the callable and the (bytes, FLOP) of its work."""
+def _diag_trsm_times(F):
+    """The diagonal steps of F's ``"trsm"`` solve at R = 16 on one carrier
+    (put back before each timed call, outside the timing), level by level
+    and all one after another: ``diag_trsm`` (one launch a step), the
+    route it replaced (``diag_trsm_plain``: a gather, ``solve_triangular``
+    and a scatter), each eager (CUDA events around the call) and by
+    CUDA-graph replay, and ``solve_triangular`` alone on operands gathered
+    once (the library call) by replay. Returns (rows (factor, tiles,
+    kernel eager, kernel graph, route eager, route graph, library graph),
+    the same for all the steps, the kernel's max relative difference from
+    the route, (bytes, FLOP) of the steps: each tile's triangle read once,
+    the level's carrier blocks read and written once, cs^2 FLOP a column
+    of a tile)."""
     import torch
 
-    R = HEADLINE["R"]
-    ops, nbytes, flop = [], 0, 0
-    for data in _banks(F):
-        for w in data.waves:
-            if w.accumulate:
-                continue
-            D = data.diag[w.dst_long].contiguous()
-            r = torch.ones((D.shape[0], D.shape[1], R), dtype=D.dtype,
-                           device="cuda")
-            ops.append((D, r, not data.lower))
-            nbytes += _nbytes(D) + 2 * _nbytes(r)
-            flop += D.shape[0] * D.shape[1] ** 2 * R
+    from tpu_sparse_lu_torch.ops.fused_ldiv import diag_trsm, diag_trsm_plain
 
-    def run():
-        return [torch.linalg.solve_triangular(D, r, upper=up)
-                for D, r, up in ops]
+    R, K, cs = HEADLINE["R"], F.plan.lplan.K, F.plan.cs
+    x0 = torch.as_tensor(np.random.default_rng(25).standard_normal(
+        (K + 1, cs, R)), dtype=F.dtype, device="cuda")
+    x = x0.clone()
+    steps = [(d, w) for d in _banks(F) for w in d.waves if not w.accumulate]
+    ops = [(d.diag[w.dst_long].contiguous(), x0[w.dst_long].contiguous(),
+            not d.lower) for d, w in steps]
 
-    return run, (nbytes, flop)
+    def route(fn, sel):
+        return lambda: [fn(x, d.diag, w, d.lower) for d, w in sel]
+
+    def library(sel):
+        return lambda: [torch.linalg.solve_triangular(D, r, upper=up)
+                        for D, r, up in sel]
+
+    def times(fn):
+        reset = lambda: x.copy_(x0)
+        return (_median_ms(lambda _: fn(), setup=reset),
+                _graph_ms(fn, setup=reset))
+
+    rows, err = [], 0.0
+    for (d, w), op in zip(steps, ops):
+        err = max(err, _rel(diag_trsm(x0.clone(), d.diag, w, d.lower),
+                            diag_trsm_plain(x0.clone(), d.diag, w, d.lower)))
+        rows.append(("L" if d.lower else "U", int(w.dst.shape[0]),
+                     *times(route(diag_trsm, [(d, w)])),
+                     *times(route(diag_trsm_plain, [(d, w)])),
+                     _graph_ms(library([op]))))
+    total = ("all", sum(r[1] for r in rows), *times(route(diag_trsm, steps)),
+             *times(route(diag_trsm_plain, steps)), _graph_ms(library(ops)))
+    work = (total[1] * (cs * (cs + 1) // 2 + 2 * cs * R) * x0.element_size(),
+            total[1] * cs * cs * R)
+    return rows, total, err, work
 
 
 def phase_tri_modes(smi):
@@ -2399,9 +2435,11 @@ def phase_tri_modes(smi):
     randomly perturbed values is reported in all three),
     ``lsolve``/``rsolve`` against ``spsolve_triangular``, float32
     backward error, the kernel path against ``plain=True``, the
-    launches of the main path, and the timing beside ``"inv"``. Returns
-    the launches of the float32 solves of both modes (the main path of
-    this phase)."""
+    launches of the main path, the timing beside ``"inv"`` and the
+    diagonal steps' (:func:`_diag_trsm_times`). Returns the launches of
+    the float32 solves of both modes (the main path of this phase), and
+    ``diag_trsm``'s float64 times and difference from its route for the
+    kernels line."""
     import scipy.sparse.linalg as spla
     import torch
 
@@ -2464,7 +2502,8 @@ def phase_tri_modes(smi):
         del F, step
     # float32: the main path of the two modes, its launches counted
     f32, solvers, kernel_vs_plain = {}, {}, 0.0
-    names = ("ldiv_fused", "perm_gather", "wave_apply", "wave_apply_bf16")
+    names = ("ldiv_fused", "perm_gather", "wave_apply", "wave_apply_bf16",
+             "diag_trsm")
     read = _reset_launches(*names)
     for mode in modes:
         A, F, build_s[mode, "float32"] = _mode_solver("float32", mode)
@@ -2479,7 +2518,8 @@ def phase_tri_modes(smi):
                         for data in _banks(F) for w in data.waves)
         want = {"ldiv_fused": 0, "perm_gather": 2, "wave_apply_bf16": 0,
                 "wave_apply": off_waves + (2 * diag_waves
-                                           if mode == "inv_refine" else 0)}
+                                           if mode == "inv_refine" else 0),
+                "diag_trsm": diag_waves if mode == "trsm" else 0}
         if d != want:
             raise AssertionError(f"{mode} ldiv launched {d}, not {want}")
         f32[mode] = _backward_error(A, x.cpu().numpy(), b)
@@ -2496,7 +2536,7 @@ def phase_tri_modes(smi):
                              f"by {kernel_vs_plain:.3e}")
     # timing beside "inv", float32 and float64, eager and by graph replay
     _, solvers["inv"], _ = _mode_solver("float32", "inv")
-    ms, share = {}, {}
+    ms, diag, diag_err = {}, {}, {}
     for dt in ("float32", "float64"):
         sv = solvers if dt == "float32" else {
             m: _mode_solver(dt, m)[1] for m in ("inv",) + modes}
@@ -2507,9 +2547,9 @@ def phase_tri_modes(smi):
                 fn = lambda F=sv[m]: F._numeric.tiles(b)
                 ms.setdefault((m, dt), []).append(
                     (_median_ms(lambda _: fn()), _graph_ms(fn)))
-        run, work = _trsm_steps(sv["trsm"])
-        share[dt] = (_median_ms(lambda _: run()), _graph_ms(run))
-        WORK["solve_triangular_" + dt] = work
+        rows, total, diag_err[dt], WORK["diag_trsm_" + dt] = (
+            _diag_trsm_times(sv["trsm"]))
+        diag[dt] = rows + [total]
         ms["plain", dt] = _median_ms(
             lambda _: sv["trsm"]._numeric.tiles(b, plain=True))
         # the set-up the one bank layout costs "trsm": both factors'
@@ -2545,22 +2585,31 @@ def phase_tri_modes(smi):
           f"(bound {TOL['float32']:g}); each solve 2 perm_gather and the "
           f"waves, no ldiv_fused; launches {launches}; construction s "
           + ", ".join(f"{m}/{dt} {v:.2f}" for (m, dt), v in build_s.items()))
+    row = lambda r: (f"{r[0]} {r[1]}: {r[2]:.4f}|{r[3]:.4f}, "
+                     f"{r[4]:.4f}|{r[5]:.4f}, {r[6]:.4f}")
     for dt in ("float32", "float64"):
-        e, g = share[dt]
-        bound_us = _bound("solve_triangular_" + dt)[0] * 1e3
-        t_e = np.mean([x for x, _ in ms["trsm", dt]])
-        t_g = np.mean([x for _, x in ms["trsm", dt]])
+        *rows, total = diag[dt]
+        bound_us = _bound("diag_trsm_" + dt)[0] * 1e3
         print(f"phase 14 timing on {smi}, {dt}: ldiv R={R} per solve, "
               f"eager|graph replay ms, two turns: inv {fmt('inv', dt)}; "
               f"trsm {fmt('trsm', dt)}; inv_refine {fmt('inv_refine', dt)}; "
-              f"trsm plain {ms['plain', dt]:.4f} eager; its solve_triangular "
-              f"calls alone {e:.4f}|{g:.4f} ms = {e / t_e:.1%}|{g / t_g:.1%} "
-              f"of the trsm solve (bound {bound_us:.1f} us); "
-              f"tri_inverse of both factors' diagonal tiles (the set-up of "
-              f"the one bank layout under trsm) {ms['tri_inverse', dt]:.4f} "
-              f"ms eager")
+              f"trsm plain {ms['plain', dt]:.4f} eager; tri_inverse of both "
+              f"factors' diagonal tiles (the set-up of the one bank layout "
+              f"under trsm) {ms['tri_inverse', dt]:.4f} ms eager")
+        print(f"phase 14 diagonal steps of a trsm solve on {smi}, {dt}, "
+              f"R={R} (factor, tiles: diag_trsm eager|graph, the route it "
+              f"replaced (gather, solve_triangular, scatter) eager|graph, "
+              f"solve_triangular alone graph, ms): {row(total)} (bound "
+              f"{bound_us:.1f} us; kernel vs route max rel diff "
+              f"{diag_err[dt]:.3e}); per level " + "; ".join(map(row, rows)))
     del solvers
-    return {k: launches[k] for k in ("perm_gather", "wave_apply")}
+    total = diag["float64"][-1]
+    WORK["diag_trsm"] = WORK["diag_trsm_float64"]
+    return ({k: launches[k] for k in ("perm_gather", "wave_apply",
+                                      "diag_trsm")},
+            {"diag_trsm": total[2], "diag_trsm_device": total[3],
+             "diag_trsm_plain": total[4], "diag_trsm_library": total[6]},
+            {"diag_trsm": diag_err["float64"]})
 
 
 def _file_mb(path) -> float:
@@ -3079,8 +3128,12 @@ def main() -> int:
     launches.update(bf_launches)
     ms.update(phase_chain_bf16_timing(smi, f32_steps, bf_steps))
     # perm_gather and wave_apply are on the main path of tri_mode="trsm"
-    # and "inv_refine": their launches are those solves'
-    launches.update(phase_tri_modes(smi))
+    # and "inv_refine", diag_trsm on trsm's: their launches are those
+    # solves'
+    tri_launches, tri_ms, tri_err = phase_tri_modes(smi)
+    launches.update(tri_launches)
+    ms.update(tri_ms)
+    err.update(tri_err)
     phase_persistence()
     phase_planner()
     # the mesh engines run perm_gather (psum engine, pipeline) and
@@ -3096,11 +3149,13 @@ def main() -> int:
              **{k: k + "_device" for k in ASSEMBLY},
              "ldiv_fused": "ldiv_fused_device",
              "ldiv_fused_bf16": "ldiv_fused_bf16_device",
-             "extract_banks": "extract_banks_device"}
+             "extract_banks": "extract_banks_device",
+             "diag_trsm": "diag_trsm_device"}
     library = {"span_gather": "span_gather_library",
                "lu_tile": "lu_tile_library",
                "tile_mm": "tile_mm_headline_library",
-               "elim_fused": "elimination_headline_levels_bmm_graph"}
+               "elim_fused": "elimination_headline_levels_bmm_graph",
+               "diag_trsm": "diag_trsm_library"}
     kernels = []
     for k, (src, tpu) in KERNELS.items():
         bound_ms, bound_by = _bound(k)

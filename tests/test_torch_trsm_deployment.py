@@ -15,6 +15,10 @@ on the CPU, at a small copy: ``poisson_2d(20, 20)``, nested dissection,
   factors a solve.
 * An ``"inv"`` solver on the same matrix emits the spans it always did:
   ``lu.ldiv.rhs`` and one ``lu.ldiv.launch``, no ``lu.ldiv.diag``.
+* On the CPU each diagonal step (``diag_trsm``) takes its plain route: the
+  bits of ``torch.linalg.solve_triangular(data.diag[ids], xw[ids],
+  upper=not lower)`` scattered back, level by level and over a whole
+  solve, with no launch counted; ``plain=True`` gives the same bits.
 """
 
 import json
@@ -29,7 +33,10 @@ from torch.profiler import ProfilerActivity, profile
 import tpu_sparse_lu_torch as tlu
 from tpu_sparse_lu_torch import trace
 from tpu_sparse_lu_torch.models import poisson_2d
-from tpu_sparse_lu_torch.solve import blocked_tri_solve
+from tpu_sparse_lu_torch.ops.fused_ldiv import (
+    diag_trsm, diag_trsm_plain, wave_apply_plain,
+)
+from tpu_sparse_lu_torch.solve import blocked_tri_solve, block_rhs
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -184,3 +191,76 @@ def test_an_inv_solver_keeps_its_spans(deployment, tmp_path):
         "lu.ldiv.rhs", LAUNCH, LAUNCH]
     assert blocked_tri_solve.DIAG_STEPS == before
     assert DIAG not in trace.totals()
+
+
+def _bits(t):
+    return t.view(torch.int64)
+
+
+def _diag_steps(F):
+    N = F._numeric
+    return [(data, w) for data in (N.ldata, N.udata) for w in data.waves
+            if not w.accumulate]
+
+
+def _blocked(F, R):
+    b = _rhs(F.n_factor, R)
+    return block_rhs(b, F.n_factor, F.plan.lplan.K, F.plan.cs)
+
+
+@pytest.mark.parametrize("R", RHS)
+def test_each_diagonal_step_gives_the_solve_triangular_bits(deployment, R):
+    _, F = deployment
+    xw = _blocked(F, R)
+    before = diag_trsm.LAUNCHES
+    for data, w in _diag_steps(F):
+        ids = w.dst_long
+        want = xw.clone()
+        want[ids] = torch.linalg.solve_triangular(
+            data.diag[ids], want[ids], upper=not data.lower)
+        got = diag_trsm(xw.clone(), data.diag, w, data.lower)
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(diag_trsm_plain(xw.clone(), data.diag, w,
+                                                 data.lower)), _bits(want))
+    assert diag_trsm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("R", RHS)
+def test_the_level_solve_is_the_solve_triangular_route(deployment, R):
+    """``blocked_tri_solve`` at ``"trsm"`` equals the route it always ran,
+    written out: the waves, and per level the gather, ``solve_triangular``
+    and the scatter; ``plain=True`` gives the same bits."""
+    _, F = deployment
+    N = F._numeric
+    x0 = _blocked(F, R)
+    want = x0.clone()
+    for data in (N.ldata, N.udata):
+        for w in data.waves:
+            if w.accumulate:
+                wave_apply_plain(want, data.tiles_t, w)
+            else:
+                ids = w.dst_long
+                want[ids] = torch.linalg.solve_triangular(
+                    data.diag[ids], want[ids], upper=not data.lower)
+    before = diag_trsm.LAUNCHES
+    for plain in (False, True):
+        got = x0.clone()
+        for data in (N.ldata, N.udata):
+            blocked_tri_solve(data, got, mode="trsm", plain=plain)
+        assert torch.equal(_bits(got), _bits(want)), plain
+    assert diag_trsm.LAUNCHES == before
+
+
+def test_diag_trsm_refuses_what_it_cannot_take(deployment):
+    _, F = deployment
+    N = F._numeric
+    data = N.ldata
+    diag_w = next(w for w in data.waves if not w.accumulate)
+    off_w = next(w for w in data.waves if w.accumulate)
+    xw = _blocked(F, 4)
+    with pytest.raises(ValueError):
+        diag_trsm(xw, data.diag, off_w, data.lower)  # not a diagonal wave
+    with pytest.raises(ValueError):
+        diag_trsm(xw.float(), data.diag, diag_w, data.lower)  # dtypes
+    with pytest.raises(ValueError):
+        diag_trsm(xw[:1], data.diag, diag_w, data.lower)  # past the carrier

@@ -26,7 +26,8 @@ packed tiles, their inverses and the solves live on ``device``. A solve on
 a CUDA device at ``tri_mode="inv"`` is one launch of the hand-written
 kernel of ``ops/fused_ldiv.py`` (``fused_ldiv``); at ``"trsm"`` and
 ``"inv_refine"`` it is ``perm_gather``, the level steps of
-``solve.blocked_tri_solve`` (the off-diagonal waves on ``wave_apply``) and
+``solve.blocked_tri_solve`` (the off-diagonal waves on ``wave_apply``, at
+``"trsm"`` each diagonal step one ``diag_trsm`` launch) and
 ``perm_gather``; for bidiagonal factors (1-D chains) in any mode it is
 the one launch of ``ops/bidiag_ldiv.py``. A device refactorization runs
 the two kernels of ``ops/assembly.py`` and the one launch of

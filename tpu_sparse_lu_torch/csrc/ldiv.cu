@@ -1,5 +1,5 @@
 // Hopper ldiv kernels: the sparse LU solve x = A \ b as a few dozen
-// launches of two simple kernels.
+// launches of simple kernels.
 //
 // Replaces the TPU kernel tpu_sparse_lu/ops/pallas_ldiv.py `_kernel`
 // (entry `pallas_fused_ldiv`), which runs the whole ldiv as one serial
@@ -14,6 +14,12 @@
 //                 the diagonal wave (acc = 0, src == dst, tile = Dinv_k)
 //                 and the off-diagonal wave (acc = 1, tiles pre-negated)
 //                 of one level of the L or U solve.
+//   diag_trsm     for every chunk k of one level: x[k] = D_k \ x[k] by
+//                 substitution in place, D_k the factor's diagonal tile
+//                 itself (tri_mode="trsm"; the body and its design
+//                 are diag_trsm.cuh). It replaces no Pallas kernel: the
+//                 JAX package's step is lax.linalg.triangular_solve
+//                 (tpu_sparse_lu/solve.py:136-141), a library call.
 //
 // Layouts. The solution carrier x is (blocks, cs, R) row-major. Tiles are
 // passed TRANSPOSED, tiles_t[t][k][i] = tile[t][i][k], so the 32 lanes of
@@ -55,6 +61,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "diag_trsm.cuh"
 
 namespace {
 
@@ -272,6 +280,50 @@ int launch_wave(T* x, const TT* tiles_t, const int32_t* dst,
                                    n_dst, cs, R, accumulate, stream);
 }
 
+// One block a (chunk of the level, strip of dts::kWarps columns).
+template <typename T, bool Vec, bool Lower>
+__global__ void __launch_bounds__(dts::kThreads)
+diag_trsm_kernel(T* __restrict__ x, const T* __restrict__ diag,
+                 const int32_t* __restrict__ dst, int cs, int R) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t k = dst[blockIdx.x];
+  dts::solve_block<T, Vec, Lower>(x + k * cs * R, diag + k * cs * cs,
+                                  reinterpret_cast<T*>(smem_raw), cs, R,
+                                  blockIdx.y * dts::kWarps);
+}
+
+template <typename T, bool Vec, bool Lower>
+int launch_diag_trsm_as(T* x, const T* diag, const int32_t* dst, int n_dst,
+                        int cs, int R, cudaStream_t stream) {
+  // above 48 KB only after opting in, once per instantiation, for the
+  // largest tile (133 KB for float64 at cs = 128)
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      diag_trsm_kernel<T, Vec, Lower>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dts::smem_bytes<T>(dts::kMaxCs));
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const dim3 grid(n_dst, (R + dts::kWarps - 1) / dts::kWarps);
+  diag_trsm_kernel<T, Vec, Lower>
+      <<<grid, dts::kThreads, dts::smem_bytes<T>(cs), stream>>>(x, diag, dst,
+                                                                 cs, R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_diag_trsm(T* x, const T* diag, const int32_t* dst, int n_dst,
+                     int cs, int R, int lower, cudaStream_t stream) {
+  if (cs < 1 || cs > dts::kMaxCs || R < 1) return (int)cudaErrorInvalidValue;
+  if (n_dst == 0) return 0;
+  // whole 16-byte pieces: every row of every tile starts 16-byte aligned
+  const bool vec = (cs * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(diag) % 16 == 0;
+  auto go = vec ? (lower ? launch_diag_trsm_as<T, true, true>
+                         : launch_diag_trsm_as<T, true, false>)
+                : (lower ? launch_diag_trsm_as<T, false, true>
+                         : launch_diag_trsm_as<T, false, false>);
+  return go(x, diag, dst, n_dst, cs, R, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,6 +373,18 @@ int ldiv_wave_apply_bf16(float* x, const void* tiles_t, const int32_t* dst,
   return launch_wave<float, __nv_bfloat16>(
       x, static_cast<const __nv_bfloat16*>(tiles_t), dst, ptr, ent_tile,
       ent_src, n_dst, cs, R, accumulate, (cudaStream_t)stream);
+}
+
+int ldiv_diag_trsm_f32(float* x, const float* diag, const int32_t* dst,
+                       int n_dst, int cs, int R, int lower, void* stream) {
+  return launch_diag_trsm<float>(x, diag, dst, n_dst, cs, R, lower,
+                                 (cudaStream_t)stream);
+}
+
+int ldiv_diag_trsm_f64(double* x, const double* diag, const int32_t* dst,
+                       int n_dst, int cs, int R, int lower, void* stream) {
+  return launch_diag_trsm<double>(x, diag, dst, n_dst, cs, R, lower,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

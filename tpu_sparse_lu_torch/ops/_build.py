@@ -185,6 +185,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f = getattr(lib, f"ldiv_wave_apply_{dt}")
         f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
         f.restype = I
+        f = getattr(lib, f"ldiv_diag_trsm_{dt}")
+        f.argtypes = [P, P, P, I, I, I, I, P]
+        f.restype = I
         f = getattr(lib, f"span_gather_{dt}")
         f.argtypes = [P, P, P, P, P, L, L, I, P]
         f.restype = I

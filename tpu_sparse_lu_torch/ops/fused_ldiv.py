@@ -28,6 +28,10 @@ so the one launch and the 32-launch route (``perm_gather``, the waves,
   widens to float32 as it is read, as the TPU kernel widens its bf16 L/U
   stream, and the arithmetic stays float32.
 
+:func:`diag_trsm` (also ``csrc/ldiv.cu``) is the diagonal step of the level
+solve at ``tri_mode="trsm"``: every chunk of a level solved by substitution
+with its diagonal tile, in place, in one launch.
+
 Each wrapper runs its kernel on a CUDA tensor and the plain PyTorch version
 beside it (``*_plain``) on a CPU tensor, and raises on anything else. The
 plain versions are the reference the kernels are held against. Each
@@ -56,6 +60,8 @@ __all__ = [
     "Wave",
     "build_ldiv_schedule",
     "build_waves",
+    "diag_trsm",
+    "diag_trsm_plain",
     "find_runs",
     "fused_ldiv",
     "fused_ldiv_bf16",
@@ -302,6 +308,59 @@ def wave_apply_bf16(x: torch.Tensor, tiles_t: torch.Tensor,
 
 
 wave_apply_bf16.LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# diag_trsm
+# ---------------------------------------------------------------------------
+
+
+def diag_trsm_plain(x: torch.Tensor, diag: torch.Tensor, wave: Wave,
+                    lower: bool) -> torch.Tensor:
+    """``x[k] = D_k⁻¹ x[k]`` for every chunk ``k`` of a diagonal wave by
+    ``torch.linalg.solve_triangular`` on the gathered tiles, scattered
+    back into ``x``; returns ``x``."""
+    ids = wave.dst_long
+    x[ids] = torch.linalg.solve_triangular(diag[ids], x[ids],
+                                           upper=not lower)
+    return x
+
+
+def diag_trsm(x: torch.Tensor, diag: torch.Tensor, wave: Wave,
+              lower: bool) -> torch.Tensor:
+    """The diagonal step of one level at ``tri_mode="trsm"``: solve
+    ``D_k y = x[k]`` and write ``y`` over ``x[k]`` for every chunk ``k`` of
+    the diagonal wave ``wave`` (its ``dst``), in place, by substitution
+    with the tile itself (no inverse) and true divisions; no other block
+    of ``x`` is touched.
+
+    ``x`` (blocks, cs, R) float32/float64 carrier; ``diag`` (K+1, cs, cs)
+    the factor's diagonal tiles of ``x``'s dtype, row-major, lower
+    (``lower``, its unit diagonal stored) or upper. One launch on a CUDA
+    tensor, :func:`diag_trsm_plain` on a CPU one. Returns ``x``.
+    """
+    _require(x.dim() == 3 and diag.dim() == 3, "diag_trsm takes a "
+             "(blocks, cs, R) carrier and (K+1, cs, cs) tiles")
+    (nx, cs, R), (nd, c1, c2) = x.shape, diag.shape
+    _require(not wave.accumulate and wave.blocks <= min(nx, nd)
+             and c1 == c2 == cs and diag.dtype == x.dtype,
+             "diag_trsm takes a diagonal wave within the carrier and tiles "
+             "of its chunk size and dtype")
+    if _device_kind(x, diag, wave.dst) == "cpu":
+        return diag_trsm_plain(x, diag, wave, lower)
+    _require(x.dtype in _KERNEL_DTYPES, "diag_trsm takes float32/float64")
+    _require(x.is_contiguous() and diag.is_contiguous()
+             and cs <= _lib().max_chunk,
+             "diag_trsm takes contiguous operands and chunk_size <= 128")
+    fn = getattr(_lib(), f"ldiv_diag_trsm_{_KERNEL_DTYPES[x.dtype]}")
+    _check(fn(x.data_ptr(), diag.data_ptr(), wave.dst.data_ptr(),
+              wave.dst.shape[0], cs, R, int(lower), _stream(x)),
+           "diag_trsm")
+    diag_trsm.LAUNCHES += 1
+    return x
+
+
+diag_trsm.LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------

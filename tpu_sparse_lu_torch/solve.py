@@ -9,9 +9,11 @@ The reference's ``lsolve!``/``rsolve!`` run a serial chunk loop of BLAS
 
 * the diagonal step over the level's chunks (the reference's ``trsv!``),
   by ``tri_mode``: ``"inv"`` — the diagonal wave ``x_k ← Dinv_k · x_k``
-  with pre-inverted tiles; ``"trsm"`` — a batched triangular solve with
-  the tiles ``D_k`` themselves; ``"inv_refine"`` — the diagonal wave, then
-  one correction ``y += Dinv_k · (r − D_k · y)``;
+  with pre-inverted tiles; ``"trsm"`` — substitution with the tiles
+  ``D_k`` themselves, every chunk of the level in one launch
+  (:func:`~tpu_sparse_lu_torch.ops.fused_ldiv.diag_trsm`);
+  ``"inv_refine"`` — the diagonal wave, then one correction
+  ``y += Dinv_k · (r − D_k · y)``;
 * the off-diagonal wave ``x_dst += Σ off_t · x_src(t)`` over the tiles
   whose source chunk lies in the level (the reference's ``gemm!``, tiles
   pre-negated), in every mode.
@@ -42,6 +44,8 @@ from .ops.fused_ldiv import (
     LdivSchedule,
     Wave,
     build_waves,
+    diag_trsm,
+    diag_trsm_plain,
     fused_ldiv,
     fused_ldiv_bf16,
     perm_gather,
@@ -142,22 +146,23 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
     ``stream=True`` reads the tile stream of ``ldiv``: the bfloat16 copy
     where there is one (through :func:`wave_apply_bf16`; solvers make one
     at ``"inv"`` only), else the bank. ``plain=True`` runs the plain
-    PyTorch waves on any device; it exists to hold the kernel path
-    against them on the card.
+    PyTorch waves on any device, and at ``"trsm"`` the plain diagonal
+    step (:func:`diag_trsm_plain`: a gather, ``solve_triangular`` and a
+    scatter); it exists to hold the kernel path against them on the card.
 
     Outside ``"inv"`` the steps are spans of their own, one after another:
     each off-diagonal wave a ``lu.ldiv.launch``, each diagonal step (the
-    gather, ``solve_triangular`` and the scatter, or the correction) a
-    ``lu.ldiv.diag``, counted in ``blocked_tri_solve.DIAG_STEPS``. At
-    ``"inv"`` every wave runs in the caller's span.
+    ``diag_trsm`` launch, or the correction) a ``lu.ldiv.diag``, counted
+    in ``blocked_tri_solve.DIAG_STEPS``. At ``"inv"`` every wave runs in
+    the caller's span.
     """
     if mode not in ("inv", "trsm", "inv_refine"):
         raise ValueError(f"unknown tri_mode: {mode!r}")
-    tiles, apply = data.tiles_t, wave_apply
+    tiles, apply, trsm = data.tiles_t, wave_apply, diag_trsm
     if stream and data.tiles_bf16 is not None:
         tiles, apply = data.tiles_bf16, wave_apply_bf16
     if plain:
-        apply = wave_apply_plain
+        apply, trsm = wave_apply_plain, diag_trsm_plain
     for w in data.waves:
         if mode == "inv":
             apply(xw, tiles, w)
@@ -166,13 +171,13 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
                 apply(xw, tiles, w)
         else:
             blocked_tri_solve.DIAG_STEPS += 1
-            # the diagonal wave's destinations are the level's chunks
-            ids = w.dst_long
             with span("lu.ldiv.diag"):
                 if mode == "trsm":
-                    xw[ids] = torch.linalg.solve_triangular(
-                        data.diag[ids], xw[ids], upper=not data.lower)
+                    trsm(xw, data.diag, w, data.lower)
                 else:
+                    # the diagonal wave's destinations are the level's
+                    # chunks
+                    ids = w.dst_long
                     r = xw[ids]
                     apply(xw, tiles, w)                   # y = Dinv·r
                     y = xw[ids]
