@@ -18,7 +18,8 @@ card.
   numerators of either sign solve to zero; tiles and numerators scaled
   far from one still match the float64 substitution.
 * A NaN in one tile stays in its own chunk.
-* ``diag_trsm.LAUNCHES`` grows exactly as ``blocked_tri_solve.DIAG_STEPS``
+* ``diag_trsm.LAUNCHES`` grows exactly as the registry's calls of
+  ``lu.ldiv.diag`` and the launches counted in them (``trace.phases``)
   over an ``F.ldiv``, which meets ``fwd_err <= 1e-12`` against the
   benchmark's float64 reference (``h100_bench/reference/dense_f64.py``).
 * The wrapper raises on a CUDA operand it cannot take.
@@ -46,7 +47,7 @@ from h100_bench.reference import dense_f64  # noqa: E402
 from tpu_sparse_lu_torch.ops.fused_ldiv import (  # noqa: E402
     diag_trsm, diag_trsm_plain, make_wave,
 )
-from tpu_sparse_lu_torch.solve import blocked_tri_solve  # noqa: E402
+from tpu_sparse_lu_torch import trace  # noqa: E402
 
 DTYPES = ("float32", "float64")
 # relative difference a column from solve_triangular on the same tiles
@@ -252,12 +253,13 @@ def test_launches_follow_the_diagonal_steps_and_ldiv_meets_the_bar(card):
     A, F = _solver("float64")
     rng = np.random.default_rng(25)
     b = rng.standard_normal((A.shape[0], 16))
-    steps, launches = blocked_tri_solve.DIAG_STEPS, diag_trsm.LAUNCHES
+    trace.reset()
+    launches = diag_trsm.LAUNCHES
     x = F.ldiv(torch.as_tensor(b, device="cuda"))
     torch.cuda.synchronize()
-    grew = blocked_tri_solve.DIAG_STEPS - steps
+    grew, _, counted = trace.phases(False)["lu.ldiv.diag"]
     assert grew == sum(1 for _ in _diag_waves(F)) >= 16
-    assert diag_trsm.LAUNCHES - launches == grew
+    assert diag_trsm.LAUNCHES - launches == grew == counted
     fwd = dense_f64.forward_errors(x.cpu().numpy(),
                                    dense_f64.solve(A, b, "cuda"))
     assert np.all(fwd <= 1e-12), fwd

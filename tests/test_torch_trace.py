@@ -9,6 +9,12 @@
   library fills ``lu.setup.kernels``, and ``lu.setup.kernel_build`` only
   when it compiles.
 * The answers are bitwise the same with and without a profiler.
+* The registry keeps the calls made under a profiler apart from the others
+  (``phases``); ``totals`` sums both, with the value it always had. A
+  launch (``ops/_launch.check``) counts in the open spans of its thread,
+  the innermost and every one around it, or under ``lu.unspanned``; a
+  failed one raises and counts nothing. ``ldiv``, a ``make_f64_ldiv``
+  solve and the refactor-solve step open their step span once a call.
 """
 
 import json
@@ -246,3 +252,206 @@ def test_spans_in_many_threads_lose_no_call():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads) and len(done) == n_threads
     assert trace.totals()["lu.test.threads"][0] == n_threads * n
+
+
+# --- the two sides of the registry, and the launches of each span ---------
+
+
+class _Clock:
+    """A stand-in for ``perf_counter_ns``: each read 1,000 ns after the
+    one before."""
+
+    def __init__(self):
+        self.t = 0
+
+    def __call__(self):
+        self.t += 1000
+        return self.t
+
+
+def _sequence():
+    """A fixed sequence of spans: nested, repeated and one that raises."""
+    for _ in range(3):
+        with trace.span("lu.test.a"):
+            pass
+    with trace.span("lu.test.outer"):
+        with trace.span("lu.test.inner"):
+            pass
+    with pytest.raises(KeyError):
+        with trace.span("lu.test.b"):
+            raise KeyError("b")
+
+
+def test_spans_under_the_profiler_land_on_the_profiled_side_only():
+    with trace.span("lu.test.a"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with trace.span("lu.test.a"):
+                pass
+        with trace.span("lu.test.b"):
+            pass
+    with trace.span("lu.test.c"):
+        pass
+    plain, profiled = trace.phases(False), trace.phases(True)
+    assert {k: v[0] for k, v in plain.items()} == {"lu.test.a": 1,
+                                                   "lu.test.c": 1}
+    assert {k: v[0] for k, v in profiled.items()} == {"lu.test.a": 2,
+                                                      "lu.test.b": 1}
+    got = trace.totals()
+    assert got["lu.test.a"][0] == 3
+    assert got["lu.test.a"][1] == pytest.approx(
+        plain["lu.test.a"][1] + profiled["lu.test.a"][1])
+    trace.reset()
+    assert trace.phases(False) == trace.phases(True) == trace.totals() == {}
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_totals_keeps_its_value_for_a_fixed_sequence(monkeypatch, profiled):
+    # calls and seconds of every span over both sides, as before the split:
+    # each span reads the clock twice, 1 µs apart, nested ones included
+    monkeypatch.setattr(trace, "perf_counter_ns", _Clock())
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU]):
+            _sequence()
+    else:
+        _sequence()
+    want = {"lu.test.a": (3, 3e-6), "lu.test.outer": (1, 3e-6),
+            "lu.test.inner": (1, 1e-6), "lu.test.b": (1, 1e-6)}
+    got = trace.totals()
+    assert set(got) == set(want)
+    for name, (calls, seconds) in want.items():
+        assert type(got[name]) is tuple and len(got[name]) == 2
+        assert got[name][0] == calls
+        assert got[name][1] == pytest.approx(seconds, rel=1e-12)
+    assert set(trace.phases(profiled)) == set(want)
+    assert trace.phases(not profiled) == {}
+
+
+def test_a_launch_counts_in_the_open_spans_and_else_as_unspanned():
+    from tpu_sparse_lu_torch.ops._launch import check
+
+    with trace.span("lu.setup.outer"):
+        check(0, "k")
+        with trace.span("lu.setup.inner"):
+            check(0, "k")
+            check(0, "k")
+        with trace.span("lu.test.none"):
+            pass
+    with trace.span("lu.ldiv.launch"):
+        check(0, "k")
+    check(0, "k")
+    check(0, "k")
+    got = trace.phases(False)
+    launches = {k: v[2] for k, v in got.items()}
+    # the innermost span counts its own; a set-up span counts its whole
+    assert launches == {"lu.setup.outer": 3, "lu.setup.inner": 2,
+                        "lu.test.none": 0, "lu.ldiv.launch": 1,
+                        trace.UNSPANNED: 2}
+    assert got[trace.UNSPANNED][:2] == (0, 0.0)
+    # not a span: totals leaves it out
+    assert trace.UNSPANNED not in trace.totals()
+    with profile(activities=[ProfilerActivity.CPU]):
+        check(0, "k")
+        with trace.span("lu.ldiv.launch"):
+            check(0, "k")
+    profiled = trace.phases(True)
+    assert profiled[trace.UNSPANNED][2] == 1
+    assert profiled["lu.ldiv.launch"][2] == 1
+    assert trace.phases(False)["lu.ldiv.launch"][2] == 1
+
+
+def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
+    from tpu_sparse_lu_torch.ops import _launch
+
+    class _Lib:
+        @staticmethod
+        def ldiv_error_string(rc):
+            return b"an error"
+
+    monkeypatch.setattr(_launch, "lib", lambda: _Lib)
+    with trace.span("lu.ldiv.launch"):
+        with pytest.raises(RuntimeError, match=r"k launch failed: an error "
+                                               r"\(cudaError 2\)"):
+            _launch.check(2, "k")
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        _launch.check(700, "k")
+    got = trace.phases(False)
+    assert got == {"lu.ldiv.launch": (1, got["lu.ldiv.launch"][1], 0)}
+
+
+def test_launches_in_many_threads_stay_in_their_threads_spans():
+    import sys
+    import threading
+
+    from tpu_sparse_lu_torch.ops._launch import check
+
+    n_threads, n = 16, 500
+    barrier = threading.Barrier(n_threads)
+
+    def work(i):
+        barrier.wait(timeout=60)
+        for _ in range(n):
+            with trace.span(f"lu.test.t{i % 2}"):
+                for _ in range(i % 2 + 1):
+                    check(0, "k")
+            if i == 0:
+                check(0, "k")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    got = trace.phases(False)
+    half = n_threads // 2
+    # a thread's launches land in its own spans, whatever ran between
+    assert got["lu.test.t0"][0] == got["lu.test.t1"][0] == half * n
+    assert got["lu.test.t0"][2] == half * n
+    assert got["lu.test.t1"][2] == 2 * half * n
+    assert got[trace.UNSPANNED][2] == n
+
+
+def _f64_solver():
+    A = poisson_2d(12, 12).tocsc()
+    F = tlu.ParallelSparseLU(A, config=tlu.SolverConfig(
+        chunk_size=16, ordering="nd", nd_cutoff=32, dtype="float32"),
+        device="cpu")
+    return A, F
+
+
+@pytest.mark.parametrize("refine_steps", [0, 2])
+@pytest.mark.parametrize("entry", ["ldiv", "refactor_step", "f64_ldiv"])
+def test_each_entry_opens_its_step_span_once_a_call(entry, refine_steps):
+    # the span a reader of the registry counts steps by: ``lu.ldiv.rhs``
+    # for ldiv and a make_f64_ldiv solve, ``lu.step.inputs`` for the step
+    if entry == "refactor_step":
+        A, F = _solver("banded")
+        call = F.make_refactor_solve_step(refine_steps=refine_steps)
+        name = "lu.step.inputs"
+    else:
+        A, F = _f64_solver()
+        call = (F.make_f64_ldiv(refine_steps=refine_steps)
+                if entry == "f64_ldiv" else
+                (lambda a, b: F.ldiv(b, refine_steps=refine_steps)))
+        if entry == "f64_ldiv":
+            call = (lambda solve: lambda a, b: solve(b))(call)
+        name = "lu.ldiv.rhs"
+    a, b = _inputs(A)
+    trace.reset()
+    for i in range(3):
+        call(a, b)
+        got = trace.phases(False)
+        assert got[name][0] == i + 1
+        other = {"lu.ldiv.rhs", "lu.step.inputs"} - {name}
+        assert not other & set(got)
+    # no kernel launches on the CPU: every count is 0, none unspanned
+    assert all(n == 0 for _, _, n in got.values())
+    assert trace.UNSPANNED not in got

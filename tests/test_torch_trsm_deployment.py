@@ -11,8 +11,9 @@ on the CPU, at a small copy: ``poisson_2d(20, 20)``, nested dissection,
   level-step solve: ``lu.ldiv.launch`` for each perm and each off-diagonal
   wave, ``lu.ldiv.diag`` for each diagonal step, in the order of the two
   factors' waves, flat.
-* ``blocked_tri_solve.DIAG_STEPS`` grows by the diagonal waves of both
-  factors a solve.
+* The registry's unprofiled calls of ``lu.ldiv.diag`` (``trace.phases``)
+  grow by the diagonal waves of both factors a solve, and count no launch
+  on the CPU.
 * An ``"inv"`` solver on the same matrix emits the spans it always did:
   ``lu.ldiv.rhs`` and one ``lu.ldiv.launch``, no ``lu.ldiv.diag``.
 * On the CPU each diagonal step (``diag_trsm``) takes its plain route: the
@@ -158,12 +159,13 @@ def test_diag_steps_count_the_diagonal_waves(deployment, R):
     N = F._numeric
     diag = sum(1 for w in N.ldata.waves + N.udata.waves if not w.accumulate)
     b = _rhs(F.n, R)
-    before = blocked_tri_solve.DIAG_STEPS
     F.ldiv(b)
-    assert blocked_tri_solve.DIAG_STEPS - before == diag
+    assert trace.phases(False)[DIAG][0] == diag
     F.ldiv(b)
-    assert blocked_tri_solve.DIAG_STEPS - before == 2 * diag
+    assert trace.phases(False)[DIAG] == (2 * diag, pytest.approx(
+        trace.totals()[DIAG][1]), 0)
     assert trace.totals()[DIAG][0] == 2 * diag
+    assert DIAG not in trace.phases(True)
 
 
 def test_the_spans_leave_the_answer_alone(deployment):
@@ -183,13 +185,13 @@ def test_an_inv_solver_keeps_its_spans(deployment, tmp_path):
     b = _rhs(G.n, 16)
     G.ldiv(b)
     trace.reset()
-    before = blocked_tri_solve.DIAG_STEPS
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         G.ldiv(b)
         G._numeric.tiles(b, plain=True)
     assert [n for n, _, _ in _spans(prof, tmp_path)] == [
         "lu.ldiv.rhs", LAUNCH, LAUNCH]
-    assert blocked_tri_solve.DIAG_STEPS == before
+    assert DIAG not in trace.phases(True)
+    assert DIAG not in trace.phases(False)
     assert DIAG not in trace.totals()
 
 

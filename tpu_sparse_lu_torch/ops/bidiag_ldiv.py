@@ -378,8 +378,7 @@ def bidiag_ldiv(b: torch.Tensor, lower: Planes = None, upper: Planes = None,
             None if aU is None else aU.data_ptr(),
             None if sU is None else sU.data_ptr(),
             agg, state, n, R, rows, grid_, stream)
-    if rc:
-        _check(rc, "bidiag_ldiv")
+    _check(rc, "bidiag_ldiv")  # raises, or counts the launch in its span
     bidiag_ldiv.LAUNCHES += 1
     return x
 

@@ -152,9 +152,10 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
 
     Outside ``"inv"`` the steps are spans of their own, one after another:
     each off-diagonal wave a ``lu.ldiv.launch``, each diagonal step (the
-    ``diag_trsm`` launch, or the correction) a ``lu.ldiv.diag``, counted
-    in ``blocked_tri_solve.DIAG_STEPS``. At ``"inv"`` every wave runs in
-    the caller's span.
+    ``diag_trsm`` launch, or the correction) a ``lu.ldiv.diag``, so the
+    registry's calls of ``lu.ldiv.diag`` count the diagonal steps
+    (``trace.phases``; its launches, the ``diag_trsm`` launches). At
+    ``"inv"`` every wave runs in the caller's span.
     """
     if mode not in ("inv", "trsm", "inv_refine"):
         raise ValueError(f"unknown tri_mode: {mode!r}")
@@ -170,7 +171,6 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
             with span("lu.ldiv.launch"):
                 apply(xw, tiles, w)
         else:
-            blocked_tri_solve.DIAG_STEPS += 1
             with span("lu.ldiv.diag"):
                 if mode == "trsm":
                     trsm(xw, data.diag, w, data.lower)
@@ -185,9 +185,6 @@ def blocked_tri_solve(data: TriKernelData, xw: torch.Tensor, *,
                     apply(xw, tiles, w)                   # Dinv·(r − D·y)
                     xw.index_add_(0, ids, y)              # y + Dinv·(r − D·y)
     return xw
-
-
-blocked_tri_solve.DIAG_STEPS = 0
 
 
 def block_rhs(v: torch.Tensor, n: int, K: int, cs: int) -> torch.Tensor:
